@@ -1,25 +1,38 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port (tdrn_tpu_torch) on one NVIDIA Hopper GPU.
 
-    python3 chip_smoke.py            # build, check every kernel, drive the main path
-    python3 chip_smoke.py --profile  # also write a torch.profiler breakdown of three
-                                     # streaming steps (cuDNN TF32 on) to
-                                     # chiprun_out/profile.txt
+    python3 chip_smoke.py            # build, check every kernel, drive both paths
+    python3 chip_smoke.py --profile  # also write torch.profiler breakdowns of three
+                                     # streaming steps (cuDNN TF32 on) of the fp32
+                                     # path to chiprun_out/profile.txt and of the
+                                     # bf16 serving path to chiprun_out/profile_bf16.txt
 
 1. Prints the card (nvidia-smi name and power limit) and the torch / CUDA versions.
-2. Builds the three kernels from tdrn_tpu_torch/csrc/*.cu with nvcc for sm_90a,
+2. Builds the four kernels from tdrn_tpu_torch/csrc/*.cu with nvcc for sm_90a,
    one nvcc per source, all at once, into build/tdrn_tpu_torch/.
 3. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (B=16, vid_320), and times both with CUDA events
    (median of 30 launches after warm-up, L2 flushed by a read before each).
-4. Drives the main path: StreamingDetector at full-width vid_320 (fused stem,
+   K3 and K4 run on fp32 and on bf16 input; K3 on bf16 input must equal K3
+   on the same values in fp32 bit for bit.
+4. Drives the fp32 path: StreamingDetector at full-width vid_320 (fused stem,
    fused cascade, fp32), random weights from a seeded numpy draw loaded
    through weights.py, 4 streams x 8 steps of 480x640 uint8 frames with a
    reset and an inactive lane. Checks shapes, finiteness, that each kernel
    launched once per step, the reset lane against a fresh run, and one frame
    against the plain versions on the CPU. Then times the steady-state step
    at 16 streams (host clock, median of 20 steps, each ending in a synchronize).
-5. Prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+5. Drives the serving path: the resident-bf16 profile (fused2 stem, fused
+   cascade, apply_inference_precision "bf16", prefilter 512) behind
+   InferenceServer, 16 client threads each submitting 8 320x320 frames of
+   its own stream, one stream reset partway. Checks that K1-K4 each launched
+   once per server step, each stream's detections against the same frames
+   through a plain StreamingDetector with only that lane active (scores
+   within 1e-5), finiteness, the bf16 carry, and one frame's raw predictions
+   against the port's CPU plain path in bf16 (5e-2 of max|ref|). Then times
+   the bf16 step at 16 streams and frames/s through the server with 16
+   concurrent clients, with its p50/p99 request latency.
+6. Prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises; there is no fallback to the CPU. It imports nothing
 of JAX or of the JAX package tdrn_tpu. TF32 is off for every check, so the
@@ -50,6 +63,10 @@ SEED = 0
 B = 16  # frames per streaming step at the timed shapes
 K1_ATOL, K1_RTOL = 1e-5, 1e-4
 K3_REL_TOL = 1e-3  # max |kernel - plain| / max |plain|, bf16 (tests/test_torch_port_kernels.py)
+K4_REL_TOL = 1e-3  # the same bound for K4 (tests/test_torch_port_stage.py)
+SERVE_SCORE_ATOL = 1e-5  # server against sequential detector (tests/test_serving.py)
+BF16_REL_TOL = 5e-2  # bf16 raw predictions, card against CPU (tests/test_precision.py)
+STREAMS = 16  # serving lanes and concurrent clients
 
 
 def log(*a):
@@ -194,12 +211,58 @@ def phase_stem(torch, rng):
     log(f"  K3 max|err|={err:.6g} max|ref|={scale:.6g} rel={err / scale:.3g}")
     check(err / scale < K3_REL_TOL, f"K3 differs: {err / scale} of max|ref|")
     ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
+    # bf16 input, as the resident-bf16 profile feeds it: the kernel rounds x,
+    # k1 and k2 to bf16 first, so it must equal K3 on the same values in fp32.
+    x16, k1_16, k2_16 = (a.to(torch.bfloat16) for a in (x, k1, k2))
+    got16 = fused_stem_stage1(x16, k1_16, b1, k2_16, b2, out_dtype=torch.float32)
+    same = fused_stem_stage1(x16.float(), k1_16.float(), b1, k2_16.float(), b2)
+    torch.cuda.synchronize()
+    check(torch.equal(got16, same), "K3 on bf16 input differs from K3 on the same values in fp32")
+    ms_bf16 = time_ms(torch, lambda: fused_stem_stage1(x16, k1_16, b1, k2_16, b2))
+    log(f"  K3 bf16 input: bit-equal to fp32 input of the same values; "
+        f"kernel {ms_bf16:.4f} ms (bf16 in and out)")
     nbytes = 4 * (B * h * w * cin + 9 * cin * n + 9 * n * n + 2 * n + B * h * w // 4 * n)
     ops = 2 * B * h * w * n * 9 * (cin + n)
     bms, by = bound(nbytes, ops, PEAK_BF16)
     return dict(name="stem", wrapper="fused_stem_stage1", source="tdrn_tpu_torch/csrc/stem.cu",
                 replaces="tdrn_tpu/ops/stem_pallas.py:189", max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, ms_bf16_input=ms_bf16)
+
+
+def phase_conv_stage(torch, rng):
+    from tdrn_tpu_torch.ops.stem import fused_conv_stage, stem_plain
+
+    h = w = 160
+    cin, cmid, cout = 64, 128, 128
+    t = lambda a: torch.tensor(a.astype(np.float32), device="cuda")
+    x = t(np.maximum(rng.normal(size=(B, h, w, cin)), 0.0) * 3)  # post-ReLU, as K3 gives
+    k1 = t(rng.uniform(-1, 1, (3, 3, cin, cmid)) * np.sqrt(6 / (9 * (cin + cmid))))
+    k2 = t(rng.uniform(-1, 1, (3, 3, cmid, cout)) * np.sqrt(6 / (9 * (cmid + cout))))
+    b1, b2 = t(rng.normal(0, 0.1, cmid)), t(rng.normal(0, 0.1, cout))
+    args = {dt: (x.to(dt), k1.to(dt), b1, k2.to(dt), b2) for dt in (torch.float32, torch.bfloat16)}
+    err = 0.0
+    for dt, a in args.items():
+        got = fused_conv_stage(*a, out_dtype=torch.float32)
+        ref = stem_plain(*a, torch.bfloat16, torch.float32)
+        torch.cuda.synchronize()
+        check(got.shape == (B, h // 2, w // 2, cout), f"K4 shape {tuple(got.shape)}")
+        e, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+        log(f"  K4 {str(dt)[6:]} input: max|err|={e:.6g} max|ref|={scale:.6g} rel={e / scale:.3g}")
+        check(e / scale < K4_REL_TOL, f"K4 differs on {dt} input: {e / scale} of max|ref|")
+        err = max(err, e)
+    a16 = args[torch.bfloat16]
+    kern = lambda: fused_conv_stage(*a16)  # bf16 in and out, as served
+    plain = lambda: stem_plain(*a16, torch.bfloat16, torch.bfloat16)
+    ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
+    ms_fp32 = time_ms(torch, lambda: fused_conv_stage(*args[torch.float32]))
+    log(f"  K4 fp32 input: kernel {ms_fp32:.4f} ms (fp32 in and out)")
+    nbytes = 2 * (B * h * w * cin + 9 * cin * cmid + 9 * cmid * cout + B * h * w // 4 * cout)
+    ops = 2 * B * h * w * 9 * (cin * cmid + cmid * cout)
+    bms, by = bound(nbytes + 4 * (cmid + cout), ops, PEAK_BF16)
+    return dict(name="conv_stage", wrapper="fused_conv_stage",
+                source="tdrn_tpu_torch/csrc/conv_stage.cu",
+                replaces="tdrn_tpu/ops/stem_pallas.py:134", max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, ms_fp32_input=ms_fp32)
 
 
 # --- main path --------------------------------------------------------------
@@ -287,12 +350,12 @@ def main_path(torch, counters):
     return model, launches
 
 
-def time_streaming(torch, model, streams=16, steps=20):
+def time_streaming(torch, model, streams=16, steps=20, hw=(480, 640), prefilter=None):
     from tdrn_tpu_torch.inference import StreamingDetector
 
     rng = np.random.default_rng(SEED + 2)
-    frames = torch.tensor(rng.integers(0, 256, (streams, 480, 640, 3), dtype=np.uint8))
-    det = StreamingDetector(model, num_streams=streams)
+    frames = torch.tensor(rng.integers(0, 256, (streams, *hw, 3), dtype=np.uint8))
+    det = StreamingDetector(model, num_streams=streams, prefilter=prefilter)
     for _ in range(3):
         det.detect(frames)
     torch.cuda.synchronize()
@@ -305,7 +368,7 @@ def time_streaming(torch, model, streams=16, steps=20):
     return det, frames, statistics.median(times) * 1e3
 
 
-def profile_step(torch, det, frames, steps=3):
+def profile_step(torch, det, frames, out_name, steps=3):
     """Device time by kernel over a few streaming steps, busy and idle share.
 
     Sums the kernel-level (device) events only, so an aten op and the kernels
@@ -328,9 +391,142 @@ def profile_step(torch, det, frames, steps=3):
              "ms/step  share  launches/step  kernel"]
     lines += [f"{ms:8.4f} {ms / busy:6.3f} {n:6d}  {key[:110]}" for ms, n, key in rows]
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(HERE, "chiprun_out", "profile.txt"), "w") as f:
+    with open(os.path.join(HERE, "chiprun_out", out_name), "w") as f:
         f.write("\n".join(lines) + "\n")
     log("\n".join(lines[:25]))
+
+
+# --- serving path: resident bf16 behind InferenceServer ----------------------
+
+
+def serving_model(torch):
+    """Full-width vid_320 in the serving profile: fused2 stem, fused cascade,
+    the seeded random weights, then the resident-bf16 transform."""
+    from tdrn_tpu_torch.config import VID_320
+    from tdrn_tpu_torch.models.detector import build_detector
+    from tdrn_tpu_torch.utils.precision import apply_inference_precision
+
+    cfg = dataclasses.replace(VID_320, fused_cascade=True)
+    return apply_inference_precision(random_params(build_detector(cfg, stem="fused2"), SEED), "bf16")
+
+
+def serve_clients(server, frames, reset=None):
+    """One client thread a stream: thread s submits frames[:, s] in order as
+    stream "s<s>"; reset = (s, i) resets stream s before its frame i.
+    Returns {s: [(boxes, scores, classes), ...]}."""
+    import threading
+
+    results = {s: [] for s in range(frames.shape[1])}
+    errors = []
+
+    def client(s):
+        try:
+            for i in range(frames.shape[0]):
+                if reset == (s, i):
+                    server.reset_stream(f"s{s}")
+                results[s].append(server.submit(f"s{s}", frames[i, s]))
+        except Exception as e:  # re-raised below, on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(s,)) for s in results]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors:
+        raise errors[0]
+    check(all(len(r) == frames.shape[0] for r in results.values()), "a client did not finish")
+    return results
+
+
+def serving_path(torch, counters):
+    from tdrn_tpu_torch.inference import StreamingDetector
+    from tdrn_tpu_torch.models.detector import build_detector
+    from tdrn_tpu_torch.ops.preprocess import preprocess_batch
+    from tdrn_tpu_torch.serving import InferenceServer
+    from tdrn_tpu_torch.utils.precision import apply_inference_precision
+
+    model = serving_model(torch)
+    cfg = model.cfg
+    steps, reset = 8, (5, 4)
+    rng = np.random.default_rng(SEED + 3)
+    frames = rng.integers(0, 256, (steps, STREAMS, cfg.size, cfg.size, 3), dtype=np.uint8)
+    det = StreamingDetector(model, num_streams=STREAMS, prefilter=512)
+    server = InferenceServer(det, window_ms=3.0, dispatch_thread=True)  # its warm-up step runs here
+    try:
+        for c in counters:
+            c.launches = 0
+        results = serve_clients(server, frames, reset)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+    finally:
+        server.close()
+    log(f"  serving: {server.frames} frames in {server.steps} server steps, "
+        f"launches {launches}, prefilter overflow frames {server.overflow_frames}")
+    check(server.frames == steps * STREAMS, f"server ran {server.frames} frames")
+    for name, n in launches.items():
+        check(n == server.steps, f"{name} launched {n} times in {server.steps} server steps")
+    check(all(s.dtype == torch.bfloat16 for s in det.state), "the carried state is not bf16")
+    check(all(bool(torch.isfinite(s).all()) for s in det.state), "non-finite state")
+    check(all(np.isfinite(r[0]).all() and np.isfinite(r[1]).all()
+              for rs in results.values() for r in rs), "non-finite detections")
+
+    # Each stream against the same frames through a plain StreamingDetector
+    # with only that stream's lane active (the same batch shape as the server's).
+    worst = 0.0
+    for s, got in results.items():
+        lane = server._lane_of[f"s{s}"]
+        ref = StreamingDetector(model, num_streams=STREAMS, prefilter=512)
+        buf = np.zeros((STREAMS, cfg.size, cfg.size, 3), np.uint8)
+        active = np.zeros((STREAMS,), np.float32)
+        active[lane] = 1.0
+        for i in range(steps):
+            if reset == (s, i):
+                ref.reset([lane])
+            buf[lane] = frames[i, s]
+            want = ref.detect(buf, active=active).scores[lane].cpu().numpy()
+            worst = max(worst, float(np.abs(got[i][1] - want).max()))
+    log(f"  serving vs sequential detector: max|score diff| = {worst:.3g} over {STREAMS} streams")
+    check(worst <= SERVE_SCORE_ATOL, f"server scores differ from the sequential detector by {worst}")
+
+    # One frame's raw predictions against the port's CPU plain path in bf16.
+    cpu_model = apply_inference_precision(build_detector(cfg, stem="fused2", device="cpu"), "bf16")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    img = torch.tensor(frames[0, :1])
+
+    def raw(m, dev):
+        x = preprocess_batch(img.to(dev), cfg, m.dtype)
+        with torch.inference_mode():
+            return m(x, m.zero_state(1))[0]
+
+    t0 = time.perf_counter()
+    g, r = raw(model, "cuda"), raw(cpu_model, "cpu")
+    rel = max(((a.cpu() - b).abs().max() / b.abs().max()).item() for a, b in zip(g, r))
+    log(f"  one frame vs CPU plain path, bf16 raw predictions: max rel err {rel:.3g} "
+        f"of max|ref| ({time.perf_counter() - t0:.1f} s)")
+    check(rel < BF16_REL_TOL, f"bf16 card predictions differ from the CPU by {rel} of max|ref|")
+    return model, launches
+
+
+def time_server(torch, model, per_client=16):
+    """frames/s through InferenceServer with one client thread a stream, and
+    the server's request latency percentiles."""
+    from tdrn_tpu_torch.inference import StreamingDetector
+    from tdrn_tpu_torch.serving import InferenceServer, LatencyStats
+
+    size = model.cfg.size
+    rng = np.random.default_rng(SEED + 4)
+    frames = rng.integers(0, 256, (per_client, STREAMS, size, size, 3), dtype=np.uint8)
+    server = InferenceServer(StreamingDetector(model, num_streams=STREAMS, prefilter=512))
+    try:
+        serve_clients(server, frames[:2])  # warm the lanes
+        server.latency, steps0 = LatencyStats(), server.steps
+        t0 = time.perf_counter()
+        serve_clients(server, frames)
+        wall = time.perf_counter() - t0
+    finally:
+        server.close()
+    return per_client * STREAMS / wall, server.steps - steps0, server.latency.snapshot()
 
 
 def main() -> int:
@@ -343,7 +539,7 @@ def main() -> int:
     from tdrn_tpu_torch import _build
     from tdrn_tpu_torch.ops.cascade import fused_refine_cascade
     from tdrn_tpu_torch.ops.nms_suppress import suppress_sorted
-    from tdrn_tpu_torch.ops.stem import fused_stem_stage1
+    from tdrn_tpu_torch.ops.stem import fused_conv_stage, fused_stem_stage1
 
     if os.path.dirname(os.path.abspath(tdrn_tpu_torch.__file__)) != os.path.join(HERE, "tdrn_tpu_torch"):
         raise RuntimeError("tdrn_tpu_torch must come from this checkout")
@@ -367,14 +563,17 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     results = []
     for label, phase in (("K1 cascade", phase_cascade), ("K2 nms_suppress", phase_nms),
-                         ("K3 stem", phase_stem)):
+                         ("K3 stem", phase_stem), ("K4 conv_stage", phase_conv_stage)):
         r = phase(torch, rng)
         log(f"{label}: max_abs_err={r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
         results.append(r)
 
     counters = [fused_refine_cascade, suppress_sorted, fused_stem_stage1]
-    model, launches = main_path(torch, counters)
+    log("fp32 path (fused stem):")
+    model, fp32_launches = main_path(torch, counters)
+    log("serving path (resident bf16, fused2 stem, prefilter 512, InferenceServer):")
+    model16, launches = serving_path(torch, counters + [fused_conv_stage])
 
     _, _, step_ms = time_streaming(torch, model)
     log(f"streaming vid_320 fp32 S=16 480x640, TF32 off: step {step_ms:.3f} ms, "
@@ -384,12 +583,26 @@ def main() -> int:
     log(f"streaming vid_320 fp32 S=16 480x640, cuDNN TF32 on: step {tf32_ms:.3f} ms, "
         f"{16 / tf32_ms * 1e3:.1f} frames/s on {card}")
     if "--profile" in sys.argv[1:]:
-        profile_step(torch, det, frames)
+        profile_step(torch, det, frames, "profile.txt")
+    # The serving profile with cuDNN's default TF32 (its fp32 heads).
+    det16, frames16, bf16_ms = time_streaming(torch, model16, hw=(320, 320), prefilter=512)
+    log(f"streaming vid_320 bf16 fused2 S=16 320x320 prefilter 512: step {bf16_ms:.3f} ms, "
+        f"{16 / bf16_ms * 1e3:.1f} frames/s on {card}")
+    if "--profile" in sys.argv[1:]:
+        profile_step(torch, det16, frames16, "profile_bf16.txt")
+    fps, server_steps, lat = time_server(torch, model16)
+    log(f"InferenceServer bf16, 16 concurrent clients x 16 frames: {fps:.1f} frames/s in "
+        f"{server_steps} steps ({16 * 16 / server_steps:.2f} frames a step), "
+        f"request latency {json.dumps(lat)} on {card}")
 
+    extra = ("ms_bf16_input", "ms_fp32_input")
     kernels = [dict(name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"],
                     launches=launches[r["wrapper"]], max_abs_err=r["max_abs_err"],
                     ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=None) for r in results]
+                    bound_by=r["bound_by"], library_ms=None,
+                    launches_by_path={"fp32_fused": fp32_launches.get(r["wrapper"], 0),
+                                      "bf16_serving": launches[r["wrapper"]]},
+                    **{k: r[k] for k in extra if k in r}) for r in results]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

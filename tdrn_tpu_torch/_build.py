@@ -34,7 +34,7 @@ _COMMON = [
 ]
 # Per-source flags. nms_suppress keeps every IoU operation separately rounded
 # (no FMA contraction) so its keep mask is bit-equal to the plain version.
-_EXTRA = {"cascade": [], "nms_suppress": ["-fmad=false"], "stem": []}
+_EXTRA = {"cascade": [], "nms_suppress": ["-fmad=false"], "stem": [], "conv_stage": []}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each kernel's entry point: (name, argtypes).
@@ -44,8 +44,11 @@ _SIGNATURES = {
     "cascade": ("tdrn_cascade", [_P] * 7 + [_I, _I, _I, _F, _F, _F, _P]),
     # boxes, scores, out, N, K, iou_thresh, stream
     "nms_suppress": ("tdrn_nms_suppress", [_P, _P, _P, _I, _I, _F, _P]),
-    # x, k1, b1, k2, b2, out, B, H, W, Cin, Cmid, Cout, round_bf16, out_bf16, stream
-    "stem": ("tdrn_stem", [_P] * 6 + [_I] * 8 + [_P]),
+    # x, k1, b1, k2, b2, out, B, H, W, Cin, Cmid, Cout, in_bf16, round_bf16,
+    # out_bf16, stream
+    "stem": ("tdrn_stem", [_P] * 6 + [_I] * 9 + [_P]),
+    # x, k1, b1, k2, b2, out, B, H, W, Cin, Cmid, Cout, in_bf16, out_bf16, stream
+    "conv_stage": ("tdrn_conv_stage", [_P] * 6 + [_I] * 8 + [_P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

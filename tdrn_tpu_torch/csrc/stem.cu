@@ -20,9 +20,11 @@
 // following cuDNN conv). This is the simple CUDA-core version: Hopper's tensor
 // cores (wgmma on bf16) are the way to the operation bound and are later work.
 //
+// x, k1 and k2 are all fp32 or all bf16 (the input type is a template
+// parameter), so the resident-bf16 profile feeds its bf16 frames and weights
+// in without an up-cast pass; rounding a bf16 value to bf16 is the identity.
 // The kernel is generic in Cin, Cmid (multiple of 16) and Cout (multiple of
-// 64), so VGG stage 2 (64 -> 128 -> 128, tdrn_tpu/ops/stem_pallas.py::
-// fused_conv_stage) is the same function with other channel counts.
+// 64); VGG stage 2 (K4) has its own tensor-core kernel in conv_stage.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,11 +49,12 @@ __host__ __device__ constexpr size_t smem_floats(int cin) {
 __device__ __forceinline__ float round_to(float v, int round_bf16) {
   return round_bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
+__device__ __forceinline__ float round_to(__nv_bfloat16 v, int) { return __bfloat162float(v); }
 
-template <bool OUT_BF16>
+template <typename T, bool OUT_BF16>
 __global__ void __launch_bounds__(THREADS, 2)
-stem_kernel(const float* __restrict__ x, const float* __restrict__ k1,
-            const float* __restrict__ b1, const float* __restrict__ k2,
+stem_kernel(const T* __restrict__ x, const T* __restrict__ k1,
+            const float* __restrict__ b1, const T* __restrict__ k2,
             const float* __restrict__ b2, void* __restrict__ out, int H, int W,
             int Cin, int Cmid, int Cout, int round_bf16) {
   extern __shared__ float4 smem4[];
@@ -173,39 +176,48 @@ stem_kernel(const float* __restrict__ x, const float* __restrict__ k1,
   }
 }
 
-template <bool OUT_BF16>
-cudaError_t launch(const float* x, const float* k1, const float* b1,
-                   const float* k2, const float* b2, void* out, int B, int H,
+template <typename T, bool OUT_BF16>
+cudaError_t launch(const void* x, const void* k1, const float* b1,
+                   const void* k2, const float* b2, void* out, int B, int H,
                    int W, int Cin, int Cmid, int Cout, int round_bf16,
                    cudaStream_t stream) {
   const size_t smem = smem_floats(Cin) * sizeof(float);
   static size_t configured = 0;  // the largest size already allowed
   if (smem > 48 * 1024 && smem > configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        stem_kernel<OUT_BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        stem_kernel<T, OUT_BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return e;
     configured = smem;
   }
   dim3 grid((W / 2 + TP - 1) / TP, (H / 2 + TP - 1) / TP, B * (Cout / NSLICE));
-  stem_kernel<OUT_BF16><<<grid, THREADS, smem, stream>>>(
-      x, k1, b1, k2, b2, out, H, W, Cin, Cmid, Cout, round_bf16);
+  stem_kernel<T, OUT_BF16><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(k1), b1,
+      static_cast<const T*>(k2), b2, out, H, W, Cin, Cmid, Cout, round_bf16);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int tdrn_stem(const float* x, const float* k1, const float* b1,
-                         const float* k2, const float* b2, void* out, int B,
-                         int H, int W, int Cin, int Cmid, int Cout,
+// x (B,H,W,Cin) NHWC, k1 (3,3,Cin,Cmid), k2 (3,3,Cmid,Cout) HWIO, all fp32
+// (in_bf16=0) or all bf16 (in_bf16=1); b1, b2 fp32.
+extern "C" int tdrn_stem(const void* x, const void* k1, const float* b1,
+                         const void* k2, const float* b2, void* out, int B,
+                         int H, int W, int Cin, int Cmid, int Cout, int in_bf16,
                          int round_bf16, int out_bf16, void* stream) {
   if (B < 1 || H < 2 || W < 2 || H % 2 || W % 2 || Cin < 1 || Cmid % CK ||
       Cmid < CK || Cout % NSLICE || Cout < NSLICE ||
       smem_floats(Cin) * sizeof(float) > 227 * 1024)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)(out_bf16 ? launch<true>(x, k1, b1, k2, b2, out, B, H, W, Cin,
-                                       Cmid, Cout, round_bf16, s)
-                        : launch<false>(x, k1, b1, k2, b2, out, B, H, W, Cin,
-                                        Cmid, Cout, round_bf16, s));
+  typedef __nv_bfloat16 bf16;
+  if (in_bf16)
+    return (int)(out_bf16 ? launch<bf16, true>(x, k1, b1, k2, b2, out, B, H, W, Cin,
+                                               Cmid, Cout, round_bf16, s)
+                          : launch<bf16, false>(x, k1, b1, k2, b2, out, B, H, W, Cin,
+                                                Cmid, Cout, round_bf16, s));
+  return (int)(out_bf16 ? launch<float, true>(x, k1, b1, k2, b2, out, B, H, W, Cin,
+                                              Cmid, Cout, round_bf16, s)
+                        : launch<float, false>(x, k1, b1, k2, b2, out, B, H, W, Cin,
+                                               Cmid, Cout, round_bf16, s));
 }

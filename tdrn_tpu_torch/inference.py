@@ -72,7 +72,7 @@ class StreamingDetector:
 
     @torch.inference_mode()
     def _step(self, frames_u8, reset, active):
-        x = preprocess_batch(frames_u8, self.cfg)
+        x = preprocess_batch(frames_u8, self.cfg, self.model.dtype)
         state = self._state
         if state is not None:
             # Per-stream reset: zero this lane's carried features.
@@ -128,7 +128,7 @@ def make_single_image_forward(
 
     @torch.inference_mode()
     def run(images_u8: torch.Tensor) -> TopDetections:
-        x = preprocess_batch(images_u8, cfg)
+        x = preprocess_batch(images_u8, cfg, model.dtype)
         state = model.zero_state(images_u8.shape[0]) if model.temporal_enabled else None
         preds, _ = model(x, state)
         return detect_topk(preds, prior_boxes(cfg, x.device), cfg, k)

@@ -7,6 +7,11 @@ post-processing (ops/detection.py) is composed by the callers.
 
 Module attribute names follow the flax module names, so ``state_dict`` keys
 are the flax parameter paths joined with "." (weights.py converts layouts).
+
+``dtype`` is the compute dtype of the backbone, TCB, re-sampling and temporal
+carry, and ``head_dtype`` that of the ARM/ODM heads; each module's parameters
+are held in its compute dtype, the L2Norm scales in fp32, and the raw
+predictions are returned in fp32 whatever the heads computed in.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ from tdrn_tpu_torch.models.temporal import State, TemporalPropagation, init_stat
 from tdrn_tpu_torch.models.vgg import VGG16Reduced
 from tdrn_tpu_torch.ops.detection import RawPredictions
 
+DTYPES = (torch.float32, torch.bfloat16)
+
 
 class TDRN(nn.Module):
     """Dual-refinement detector with optional temporal propagation."""
@@ -39,9 +46,13 @@ class TDRN(nn.Module):
         width_mult: float = 1.0,
         stem: str = "conv",
         temporal_cell: str = "convgru",
+        dtype: torch.dtype = torch.float32,
+        head_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
+        self.head_dtype = head_dtype or dtype
         self.temporal_enabled = temporal
         self.arm_guided_sampling = arm_guided_sampling
         self.tcb_channels = tcb_channels
@@ -57,6 +68,11 @@ class TDRN(nn.Module):
         self.odm = MultiBoxHead(
             cfg.num_classes, cfg.anchors_per_cell, (tcb_channels,) * len(src_channels)
         )
+        for name, module in self.named_children():
+            if name in ("arm", "odm"):
+                module.to(self.head_dtype)
+            elif not name.startswith("l2norm"):
+                module.to(dtype)
 
     def forward(
         self, x: torch.Tensor, state: Optional[State] = None
@@ -74,12 +90,13 @@ class TDRN(nn.Module):
         if self.temporal_enabled:
             feats, new_state = self.temporal(feats, state)
         odm_loc, odm_conf = self.odm(feats)
-        return RawPredictions(arm_loc, arm_conf, odm_loc, odm_conf), new_state
+        preds = RawPredictions(arm_loc, arm_conf, odm_loc, odm_conf)
+        return RawPredictions(*(t.float() for t in preds)), new_state
 
     def zero_state(self, batch: int) -> State:
-        p = next(self.parameters())
         return init_state(
-            batch, self.cfg.feature_maps, self.tcb_channels, p.dtype, p.device
+            batch, self.cfg.feature_maps, self.tcb_channels, self.dtype,
+            next(self.parameters()).device,
         )
 
 
@@ -98,17 +115,19 @@ def build_detector(
 ) -> TDRN:
     """Build an eval-mode detector on ``device`` (CUDA unless "cpu" is given).
 
-    Ported: the VGG-16 backbone, the conv and fused stems, the ConvGRU cell,
-    fp32. Everything else raises NotImplementedError.
+    Ported: the VGG-16 backbone, the conv, fused and fused2 stems, the ConvGRU
+    cell, fp32 and bf16 for ``dtype`` and ``head_dtype``. Everything else
+    raises NotImplementedError.
     """
     dev = _build.resolve_device(device)
     if backbone != "vgg16":
         raise NotImplementedError(f"backbone {backbone!r} is not ported yet")
-    if dtype != torch.float32 or (head_dtype is not None and head_dtype != dtype):
-        raise NotImplementedError("only the fp32 profile is ported yet")
+    for dt in (dtype, head_dtype or dtype):
+        if dt not in DTYPES:
+            raise NotImplementedError(f"dtype {dt} is not ported (ported: {DTYPES})")
     model = TDRN(
         cfg, temporal=temporal, arm_guided_sampling=arm_guided_sampling,
         tcb_channels=tcb_channels, width_mult=width_mult, stem=stem,
-        temporal_cell=temporal_cell,
+        temporal_cell=temporal_cell, dtype=dtype, head_dtype=head_dtype,
     )
     return model.to(dev).eval()

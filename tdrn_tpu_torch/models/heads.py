@@ -27,8 +27,12 @@ class MultiBoxHead(nn.Module):
             setattr(self, f"conf{k}", conv3x3(c, a * num_outputs))
 
     def forward(self, feats: List[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Each feature is cast to the heads' dtype first (flax's promote_dtype:
+        fp32 heads read bf16 features in the resident-bf16 profile)."""
+        dtype = self.loc0.weight.dtype
         locs, confs = [], []
         for k, x in enumerate(feats):
+            x = x.to(dtype)
             b = x.shape[0]
             loc = getattr(self, f"loc{k}")(x)
             conf = getattr(self, f"conf{k}")(x)

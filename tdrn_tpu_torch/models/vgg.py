@@ -7,7 +7,9 @@ pool5) and conv6_2 (size/64).
 
 ``stem="fused"`` runs stage 1 (conv1_1 + relu + conv1_2 + relu + pool1) as
 the K3 wrapper (ops/stem.py) on the same ``conv1_1``/``conv1_2`` parameters,
-so a ``stem="conv"`` checkpoint serves it unchanged.
+so a ``stem="conv"`` checkpoint serves it unchanged. ``stem="fused2"`` also
+runs stage 2 (conv2_1, conv2_2, pool2) as the K4 wrapper on K3's NHWC output.
+The convolutions compute in the dtype of the backbone's parameters.
 """
 
 from __future__ import annotations
@@ -19,11 +21,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tdrn_tpu_torch.models.layers import conv1x1, conv3x3
-from tdrn_tpu_torch.ops.stem import fused_stem_stage1
+from tdrn_tpu_torch.ops.stem import fused_conv_stage, fused_stem_stage1
 
 # (num_convs, channels) per VGG stage.
 _STAGES = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
-STEMS = ("conv", "fused")
+STEMS = ("conv", "fused", "fused2")
 
 
 def _hwio(conv: nn.Conv2d) -> torch.Tensor:
@@ -54,16 +56,22 @@ class VGG16Reduced(nn.Module):
 
     def forward(self, x_nhwc: torch.Tensor) -> List[torch.Tensor]:
         """x: (B, H, W, 3) preprocessed frames, NHWC; returns NCHW maps."""
+        dtype = self.conv1_1.weight.dtype
+        x_nhwc = x_nhwc.to(dtype)
         start_stage = 0
-        if self.stem == "fused":
-            y = fused_stem_stage1(
+        if self.stem in ("fused", "fused2"):
+            x_nhwc = fused_stem_stage1(
                 x_nhwc, _hwio(self.conv1_1), self.conv1_1.bias,
-                _hwio(self.conv1_2), self.conv1_2.bias, out_dtype=x_nhwc.dtype,
+                _hwio(self.conv1_2), self.conv1_2.bias, out_dtype=dtype,
             )
-            x = y.permute(0, 3, 1, 2)  # NCHW view of the NHWC (channels_last) result
             start_stage = 1
-        else:
-            x = x_nhwc.permute(0, 3, 1, 2)
+        if self.stem == "fused2":
+            x_nhwc = fused_conv_stage(
+                x_nhwc, _hwio(self.conv2_1), self.conv2_1.bias,
+                _hwio(self.conv2_2), self.conv2_2.bias, out_dtype=dtype,
+            )
+            start_stage = 2
+        x = x_nhwc.permute(0, 3, 1, 2)  # NCHW view; a kernel's result is channels_last
         sources = []
         for si, (n, _) in enumerate(_STAGES):
             if si < start_stage:

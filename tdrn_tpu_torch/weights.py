@@ -54,7 +54,7 @@ def params_to_jax(state_dict) -> dict:
     root: dict = {}
     for key, t in state_dict.items():
         path = key.split(".")
-        v = t.detach().cpu().numpy().astype(np.float32)
+        v = t.detach().cpu().float().numpy()  # bf16 has no numpy dtype
         if path[-1] == "weight":
             path[-1] = "kernel"
             if "deconv" in path:
@@ -70,6 +70,7 @@ def params_to_jax(state_dict) -> dict:
 
 def load_jax_params(model: torch.nn.Module, tree) -> torch.nn.Module:
     """Load a JAX param tree into ``model`` strictly: a missing or extra key,
-    or a shape mismatch, raises."""
+    or a shape mismatch, raises. Each tensor takes its parameter's dtype; into
+    a bf16 parameter that rounds to nearest even, as ``astype(bfloat16)`` does."""
     model.load_state_dict(params_from_jax(tree), strict=True)
     return model

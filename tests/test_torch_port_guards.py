@@ -16,7 +16,7 @@ from tdrn_tpu_torch.config import TINY_64
 from tdrn_tpu_torch.ops.cascade import fused_refine_cascade
 from tdrn_tpu_torch.ops.detection import RawPredictions
 from tdrn_tpu_torch.ops.nms_suppress import suppress_sorted
-from tdrn_tpu_torch.ops.stem import fused_stem_stage1
+from tdrn_tpu_torch.ops.stem import fused_conv_stage, fused_stem_stage1
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "tdrn_tpu_torch")
@@ -87,9 +87,8 @@ def test_unported_options_raise():
     from tdrn_tpu_torch.models.detector import build_detector
 
     small = dict(width_mult=0.125, tcb_channels=32, device="cpu")
-    for kw in (dict(stem="s2d"), dict(stem="fused2"), dict(temporal_cell="light"),
-               dict(backbone="resnet101"), dict(dtype=torch.bfloat16),
-               dict(head_dtype=torch.bfloat16)):
+    for kw in (dict(stem="s2d"), dict(dtype=torch.float16), dict(temporal_cell="light"),
+               dict(backbone="resnet101"), dict(head_dtype=torch.float16)):
         with pytest.raises(NotImplementedError):
             build_detector(TINY_64, **kw, **small)
     with pytest.raises(NotImplementedError):
@@ -132,17 +131,28 @@ def test_nms_wrapper_rejects_bad_input():
 
 
 def test_stem_wrapper_rejects_bad_input():
+    """K3 and K4 alike."""
+    for wrapper, cout in ((fused_stem_stage1, 8), (fused_conv_stage, 16)):
+        _rejects_bad_input(wrapper, cout)
+
+
+def _rejects_bad_input(wrapper, cout):
     x = torch.zeros(1, 8, 8, 3)
     k1, b1 = torch.zeros(3, 3, 3, 8), torch.zeros(8)
-    k2, b2 = torch.zeros(3, 3, 8, 8), torch.zeros(8)
-    assert fused_stem_stage1(x, k1, b1, k2, b2).shape == (1, 4, 4, 8)
+    k2, b2 = torch.zeros(3, 3, 8, cout), torch.zeros(cout)
+    assert wrapper(x, k1, b1, k2, b2).shape == (1, 4, 4, cout)
+    bf = lambda t: t.to(torch.bfloat16)
+    assert wrapper(bf(x), bf(k1), bf(b1), bf(k2), b2).dtype == torch.bfloat16
     for args, kw in [
         ((x.double(), k1, b1, k2, b2), {}),
+        ((bf(x), k1, b1, k2, b2), {}),
+        ((x, k1, b1.half(), k2, b2), {}),
         ((torch.zeros(1, 3, 8, 8).permute(0, 2, 3, 1), k1, b1, k2, b2), {}),
         ((torch.zeros(1, 7, 8, 3), k1, b1, k2, b2), {}),
-        ((x, k1, b1, torch.zeros(3, 3, 8, 16), b2), {}),
+        ((x, k1, b1, torch.zeros(3, 3, 8, 24), b2), {}),
         ((x, k1, b1, k2, b2), {"compute_dtype": torch.float16}),
+        ((x, k1, b1, k2, b2), {"out_dtype": torch.float16}),
         ((x.to("meta"), k1.to("meta"), b1.to("meta"), k2.to("meta"), b2.to("meta")), {}),
     ]:
         with pytest.raises((TypeError, ValueError)):
-            fused_stem_stage1(*args, **kw)
+            wrapper(*args, **kw)
