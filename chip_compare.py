@@ -1,0 +1,99 @@
+#!/usr/bin/env python3
+"""Time the port's streaming paths and its server from two checkouts, in turns
+on one card: A, B, B, A, each run in a fresh process.
+
+    python3 chip_compare.py DIR_A DIR_B
+
+DIR_A and DIR_B are checkouts of this repository, for example this one and a
+`git archive` of its parent unpacked under build/. Each run builds that
+checkout's kernels and measures it with this checkout's chip_smoke.py helpers,
+the same seeded random weights and the same frames:
+- the fp32 step (fused stem, S=16, 480x640 frames, cuDNN TF32 on) and the bf16
+  serving step (fused2, bf16, prefilter 512, 320x320 frames) with
+  chip_smoke.time_streaming: the median step time over 20 steps, each ending
+  in a synchronize, and the median host time of the detect() call alone,
+  before that synchronize (the enqueue);
+- InferenceServer with 16 concurrent clients x 16 frames: frames/s, frames a
+  step, p50/p99 request latency.
+It prints the card line, one JSON line a run, and last the medians of each
+checkout's two runs. It checks nothing: chip_smoke.py does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _smoke():
+    """This checkout's chip_smoke.py, loaded under another name so that the
+    checkout under test keeps its own."""
+    spec = importlib.util.spec_from_file_location("smoke_helpers", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def worker(root: str) -> dict:
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    import tdrn_tpu_torch
+    from tdrn_tpu_torch import _build
+    from tdrn_tpu_torch.config import VID_320
+    from tdrn_tpu_torch.models.detector import build_detector
+
+    if not os.path.abspath(tdrn_tpu_torch.__file__).startswith(os.path.abspath(root) + os.sep):
+        raise RuntimeError(f"tdrn_tpu_torch did not come from {root}")
+    smoke = _smoke()
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for cuDNN convs
+    _build.build_all()
+    out = {"root": root}
+    cfg = dataclasses.replace(VID_320, fused_cascade=True)
+    fp32 = smoke.random_params(build_detector(cfg, stem="fused"), smoke.SEED)
+    _, _, out["fp32_step_ms"], out["fp32_host_ms"] = smoke.time_streaming(torch, fp32)
+    del fp32
+    model16 = smoke.serving_model(torch)
+    _, _, out["bf16_step_ms"], out["bf16_host_ms"] = smoke.time_streaming(
+        torch, model16, hw=(320, 320), prefilter=512)
+    fps, steps, lat = smoke.time_server(torch, model16)
+    out.update(server_fps=fps, server_frames_a_step=16 * 16 / steps,
+               server_p50_ms=lat["p50_ms"], server_p99_ms=lat["p99_ms"])
+    return out
+
+
+def main() -> int:
+    if sys.argv[1:2] == ["--worker"]:
+        print(json.dumps(worker(sys.argv[2])), flush=True)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available() or len(sys.argv) != 3:
+        print(__doc__.split("\n\n")[1], file=sys.stderr)
+        return 2
+    a, b = sys.argv[1:]
+    print(_smoke().card_line(), flush=True)
+    runs = []
+    for root in (a, b, b, a):
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root],
+                             capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            print(res.stdout, res.stderr[-4000:], file=sys.stderr)
+            return 1
+        runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+        print(json.dumps(runs[-1]), flush=True)
+    keys = [k for k in runs[0] if k != "root"]
+    print(json.dumps({root: {k: statistics.median(r[k] for r in runs if r["root"] == root)
+                             for k in keys} for root in (a, b)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,15 +13,19 @@
 3. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (B=16, vid_320), and times both with CUDA events
    (median of 30 launches after warm-up, L2 flushed by a read before each).
-   K3 and K4 run on fp32 and on bf16 input; K3 on bf16 input must equal K3
-   on the same values in fp32 bit for bit.
+   K3 and K4 run on fp32 and on bf16 input, and at a ragged shape (B=2,
+   44x52: the last tile partial in both axes); K3 on bf16 input must equal
+   K3 on the same values in fp32 bit for bit, and K3's fp32-compute route
+   (CUDA cores) is held to fp32 convs at 1e-4 of max|ref|. K3 and K4 also
+   log TFLOP/s, and the time of the same stage as a cuDNN chain in bf16
+   channels_last (conv, ReLU, conv, ReLU, max_pool2d) as a yardstick
+   (cudnn_chain_ms); the port never calls that chain.
 4. Drives the fp32 path: StreamingDetector at full-width vid_320 (fused stem,
    fused cascade, fp32), random weights from a seeded numpy draw loaded
    through weights.py, 4 streams x 8 steps of 480x640 uint8 frames with a
    reset and an inactive lane. Checks shapes, finiteness, that each kernel
    launched once per step, the reset lane against a fresh run, and one frame
-   against the plain versions on the CPU. Then times the steady-state step
-   at 16 streams (host clock, median of 20 steps, each ending in a synchronize).
+   against the plain versions on the CPU (its raw predictions' error logged).
 5. Drives the serving path: the resident-bf16 profile (fused2 stem, fused
    cascade, apply_inference_precision "bf16", prefilter 512) behind
    InferenceServer, 16 client threads each submitting 8 320x320 frames of
@@ -29,10 +33,13 @@
    once per server step, each stream's detections against the same frames
    through a plain StreamingDetector with only that lane active (scores
    within 1e-5), finiteness, the bf16 carry, and one frame's raw predictions
-   against the port's CPU plain path in bf16 (5e-2 of max|ref|). Then times
-   the bf16 step at 16 streams and frames/s through the server with 16
-   concurrent clients, with its p50/p99 request latency.
-6. Prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+   against the port's CPU plain path in bf16 (5e-2 of max|ref|).
+6. Times, before any profiling (a profiler session leaves host overhead
+   behind): the fp32 step and the bf16 step at 16 streams (host clock,
+   median of 20 steps, each ending in a synchronize, with the host's time
+   of the detect() call alone beside it), and frames/s through the server
+   with 16 concurrent clients, with its p50/p99 request latency.
+7. Prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises; there is no fallback to the CPU. It imports nothing
 of JAX or of the JAX package tdrn_tpu. TF32 is off for every check, so the
@@ -63,6 +70,7 @@ SEED = 0
 B = 16  # frames per streaming step at the timed shapes
 K1_ATOL, K1_RTOL = 1e-5, 1e-4
 K3_REL_TOL = 1e-3  # max |kernel - plain| / max |plain|, bf16 (tests/test_torch_port_kernels.py)
+K3_FP32_REL_TOL = 1e-4  # the same for fp32 compute: fp32 sums in another order
 K4_REL_TOL = 1e-3  # the same bound for K4 (tests/test_torch_port_stage.py)
 SERVE_SCORE_ATOL = 1e-5  # server against sequential detector (tests/test_serving.py)
 BF16_REL_TOL = 5e-2  # bf16 raw predictions, card against CPU (tests/test_precision.py)
@@ -78,6 +86,29 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(out: str):
+    """One line a kernel from nvcc's -Xptxas -v output: its (demangled) name,
+    registers, spills and static shared memory."""
+    import re
+    import shutil
+
+    filt = shutil.which("c++filt")
+    name, spill, lines = None, "", []
+    for line in out.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            if filt:
+                name = subprocess.run([filt, name], capture_output=True, text=True).stdout.strip()
+            name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+            name = name.split("(")[0]  # drop the argument list
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and name:
+            lines.append(f"{name}: {line.split(':', 1)[-1].strip()}; {spill}")
+    return lines
 
 
 def time_ms(torch, fn, reps=30, warmup=5):
@@ -191,42 +222,97 @@ def phase_nms(torch, rng):
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
 
 
+def _stage_inputs(torch, rng, b, h, w, cin, cmid, cout, x_scale):
+    """Seeded fp32 inputs of a fused stage, on the card: x scaled by x_scale
+    (a callable of the draw), xavier-uniform kernels, small normal biases."""
+    t = lambda a: torch.tensor(a.astype(np.float32), device="cuda")
+    x = t(x_scale(rng, (b, h, w, cin)))
+    k1 = t(rng.uniform(-1, 1, (3, 3, cin, cmid)) * np.sqrt(6 / (9 * (cin + cmid))))
+    k2 = t(rng.uniform(-1, 1, (3, 3, cmid, cout)) * np.sqrt(6 / (9 * (cmid + cout))))
+    return x, k1, t(rng.normal(0, 0.1, cmid)), k2, t(rng.normal(0, 0.1, cout))
+
+
+def _bf16(args):
+    """x, k1, k2 in bf16; the biases stay fp32."""
+    x, k1, b1, k2, b2 = args
+    return x.bfloat16(), k1.bfloat16(), b1, k2.bfloat16(), b2
+
+
+def _rel_err(torch, got, ref, what, tol):
+    """max |got - ref| / max |ref|, logged and held to tol; returns max |got - ref|."""
+    check(got.shape == ref.shape, f"{what}: shape {tuple(got.shape)}, expected {tuple(ref.shape)}")
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    log(f"  {what}: max|err|={err:.6g} max|ref|={scale:.6g} rel={err / scale:.3g} (bound {tol:g})")
+    check(err / scale < tol, f"{what} differs: {err / scale} of max|ref|")
+    return err
+
+
+def cudnn_chain(torch, args):
+    """The same stage as one chain of PyTorch calls in bf16 channels_last
+    (cuDNN conv, ReLU, conv, ReLU, max_pool2d): a yardstick of speed only,
+    which the port never calls. Returns a callable over the given inputs."""
+    import torch.nn.functional as F
+
+    x, k1, b1, k2, b2 = args
+    cl = torch.channels_last
+    xc = x.bfloat16().permute(0, 3, 1, 2).contiguous(memory_format=cl)
+    w1 = k1.bfloat16().permute(3, 2, 0, 1).contiguous(memory_format=cl)
+    w2 = k2.bfloat16().permute(3, 2, 0, 1).contiguous(memory_format=cl)
+    c1, c2 = b1.bfloat16(), b2.bfloat16()
+    return lambda: F.max_pool2d(F.relu(F.conv2d(F.relu(F.conv2d(xc, w1, c1, padding=1)),
+                                                w2, c2, padding=1)), 2, 2)
+
+
+# Ragged shape of the K3 and K4 checks: the last 16x16 tile is partial in both axes.
+RAGGED = (2, 44, 52)
+
+
 def phase_stem(torch, rng):
     from tdrn_tpu_torch.ops.stem import fused_stem_stage1, stem_plain
 
     h = w = 320
     cin, n = 3, 64
-    t = lambda a: torch.tensor(a.astype(np.float32), device="cuda")
-    x = t(rng.uniform(0, 255, (B, h, w, cin)) - 117.0)
-    k1 = t(rng.uniform(-1, 1, (3, 3, cin, n)) * np.sqrt(6 / (9 * (cin + n))))
-    k2 = t(rng.uniform(-1, 1, (3, 3, n, n)) * np.sqrt(6 / (9 * 2 * n)))
-    b1, b2 = t(rng.normal(0, 0.1, n)), t(rng.normal(0, 0.1, n))
-    kern = lambda: fused_stem_stage1(x, k1, b1, k2, b2)
-    plain = lambda: stem_plain(x, k1, b1, k2, b2, torch.bfloat16, torch.float32)
-    got, ref = kern(), plain()
-    torch.cuda.synchronize()
-    check(got.shape == (B, h // 2, w // 2, n), f"K3 shape {tuple(got.shape)}")
-    err = (got - ref).abs().max().item()
-    scale = ref.abs().max().item()
-    log(f"  K3 max|err|={err:.6g} max|ref|={scale:.6g} rel={err / scale:.3g}")
-    check(err / scale < K3_REL_TOL, f"K3 differs: {err / scale} of max|ref|")
-    ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
+    pixels = lambda r, shape: r.uniform(0, 255, shape) - 117.0
+    a32 = _stage_inputs(torch, rng, B, h, w, cin, n, n, pixels)
+    a16 = _bf16(a32)
+    f32, b16 = torch.float32, torch.bfloat16
+    # bf16 compute (the tensor-core kernel), fp32 input, at the main shape
+    # and at a ragged one.
+    err = _rel_err(torch, fused_stem_stage1(*a32), stem_plain(*a32, b16, f32),
+                   "K3 bf16 compute, fp32 input", K3_REL_TOL)
+    rag = _stage_inputs(torch, rng, *RAGGED, cin, n, n, pixels)
+    _rel_err(torch, fused_stem_stage1(*rag), stem_plain(*rag, b16, f32),
+             f"K3 ragged {RAGGED}", K3_REL_TOL)
     # bf16 input, as the resident-bf16 profile feeds it: the kernel rounds x,
     # k1 and k2 to bf16 first, so it must equal K3 on the same values in fp32.
-    x16, k1_16, k2_16 = (a.to(torch.bfloat16) for a in (x, k1, k2))
-    got16 = fused_stem_stage1(x16, k1_16, b1, k2_16, b2, out_dtype=torch.float32)
-    same = fused_stem_stage1(x16.float(), k1_16.float(), b1, k2_16.float(), b2)
+    got16 = fused_stem_stage1(*a16, out_dtype=f32)
+    same = fused_stem_stage1(a16[0].float(), a16[1].float(), a16[2], a16[3].float(), a16[4])
     torch.cuda.synchronize()
     check(torch.equal(got16, same), "K3 on bf16 input differs from K3 on the same values in fp32")
-    ms_bf16 = time_ms(torch, lambda: fused_stem_stage1(x16, k1_16, b1, k2_16, b2))
-    log(f"  K3 bf16 input: bit-equal to fp32 input of the same values; "
-        f"kernel {ms_bf16:.4f} ms (bf16 in and out)")
-    nbytes = 4 * (B * h * w * cin + 9 * cin * n + 9 * n * n + 2 * n + B * h * w // 4 * n)
+    log("  K3 bf16 input: bit-equal to fp32 input of the same values")
+    # fp32 compute: the CUDA-core kernel, against fp32 convs (TF32 off).
+    fp32_route = lambda: fused_stem_stage1(*a32, compute_dtype=f32)
+    _rel_err(torch, fp32_route(), stem_plain(*a32, f32, f32), "K3 fp32 compute", K3_FP32_REL_TOL)
+
+    kern = lambda: fused_stem_stage1(*a16)  # bf16 in and out, as served
+    plain = lambda: stem_plain(*a16, b16, b16)
+    ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
+    ms_fp32_input = time_ms(torch, lambda: fused_stem_stage1(*a32))
+    ms_fp32_compute = time_ms(torch, fp32_route)
+    chain_ms = time_ms(torch, cudnn_chain(torch, a16))
+    nbytes = 2 * (B * h * w * cin + 9 * cin * n + 9 * n * n + B * h * w // 4 * n) + 4 * 2 * n
     ops = 2 * B * h * w * n * 9 * (cin + n)
     bms, by = bound(nbytes, ops, PEAK_BF16)
+    log(f"  K3 bf16 in and out {ms:.4f} ms = {ops / ms / 1e9:.1f} TFLOP/s; fp32 in and out "
+        f"{ms_fp32_input:.4f} ms; fp32 compute (CUDA cores) {ms_fp32_compute:.4f} ms; "
+        f"cuDNN bf16 chain {chain_ms:.4f} ms")
     return dict(name="stem", wrapper="fused_stem_stage1", source="tdrn_tpu_torch/csrc/stem.cu",
                 replaces="tdrn_tpu/ops/stem_pallas.py:189", max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, ms_bf16_input=ms_bf16)
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, tflops=ops / ms / 1e9,
+                cudnn_chain_ms=chain_ms, ms_fp32_input=ms_fp32_input,
+                ms_fp32_compute=ms_fp32_compute)
 
 
 def phase_conv_stage(torch, rng):
@@ -234,35 +320,32 @@ def phase_conv_stage(torch, rng):
 
     h = w = 160
     cin, cmid, cout = 64, 128, 128
-    t = lambda a: torch.tensor(a.astype(np.float32), device="cuda")
-    x = t(np.maximum(rng.normal(size=(B, h, w, cin)), 0.0) * 3)  # post-ReLU, as K3 gives
-    k1 = t(rng.uniform(-1, 1, (3, 3, cin, cmid)) * np.sqrt(6 / (9 * (cin + cmid))))
-    k2 = t(rng.uniform(-1, 1, (3, 3, cmid, cout)) * np.sqrt(6 / (9 * (cmid + cout))))
-    b1, b2 = t(rng.normal(0, 0.1, cmid)), t(rng.normal(0, 0.1, cout))
-    args = {dt: (x.to(dt), k1.to(dt), b1, k2.to(dt), b2) for dt in (torch.float32, torch.bfloat16)}
+    post_relu = lambda r, shape: np.maximum(r.normal(size=shape), 0.0) * 3  # as K3 gives
+    a32 = _stage_inputs(torch, rng, B, h, w, cin, cmid, cout, post_relu)
+    a16 = _bf16(a32)
+    f32, b16 = torch.float32, torch.bfloat16
     err = 0.0
-    for dt, a in args.items():
-        got = fused_conv_stage(*a, out_dtype=torch.float32)
-        ref = stem_plain(*a, torch.bfloat16, torch.float32)
-        torch.cuda.synchronize()
-        check(got.shape == (B, h // 2, w // 2, cout), f"K4 shape {tuple(got.shape)}")
-        e, scale = (got - ref).abs().max().item(), ref.abs().max().item()
-        log(f"  K4 {str(dt)[6:]} input: max|err|={e:.6g} max|ref|={scale:.6g} rel={e / scale:.3g}")
-        check(e / scale < K4_REL_TOL, f"K4 differs on {dt} input: {e / scale} of max|ref|")
-        err = max(err, e)
-    a16 = args[torch.bfloat16]
+    for name, a in (("fp32", a32), ("bf16", a16)):
+        err = max(err, _rel_err(torch, fused_conv_stage(*a, out_dtype=f32),
+                                stem_plain(*a, b16, f32), f"K4 {name} input", K4_REL_TOL))
+    rag = _bf16(_stage_inputs(torch, rng, *RAGGED, cin, cmid, cout, post_relu))
+    _rel_err(torch, fused_conv_stage(*rag, out_dtype=f32), stem_plain(*rag, b16, f32),
+             f"K4 ragged {RAGGED}", K4_REL_TOL)
     kern = lambda: fused_conv_stage(*a16)  # bf16 in and out, as served
-    plain = lambda: stem_plain(*a16, torch.bfloat16, torch.bfloat16)
+    plain = lambda: stem_plain(*a16, b16, b16)
     ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
-    ms_fp32 = time_ms(torch, lambda: fused_conv_stage(*args[torch.float32]))
-    log(f"  K4 fp32 input: kernel {ms_fp32:.4f} ms (fp32 in and out)")
+    ms_fp32 = time_ms(torch, lambda: fused_conv_stage(*a32))
+    chain_ms = time_ms(torch, cudnn_chain(torch, a16))
     nbytes = 2 * (B * h * w * cin + 9 * cin * cmid + 9 * cmid * cout + B * h * w // 4 * cout)
     ops = 2 * B * h * w * 9 * (cin * cmid + cmid * cout)
     bms, by = bound(nbytes + 4 * (cmid + cout), ops, PEAK_BF16)
+    log(f"  K4 bf16 in and out {ms:.4f} ms = {ops / ms / 1e9:.1f} TFLOP/s; fp32 in and out "
+        f"{ms_fp32:.4f} ms; cuDNN bf16 chain {chain_ms:.4f} ms")
     return dict(name="conv_stage", wrapper="fused_conv_stage",
                 source="tdrn_tpu_torch/csrc/conv_stage.cu",
                 replaces="tdrn_tpu/ops/stem_pallas.py:134", max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, ms_fp32_input=ms_fp32)
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, tflops=ops / ms / 1e9,
+                cudnn_chain_ms=chain_ms, ms_fp32_input=ms_fp32)
 
 
 # --- main path --------------------------------------------------------------
@@ -344,10 +427,25 @@ def main_path(torch, counters):
     score_err = (g.scores.cpu() - r.scores).abs().max().item()
     box_err = (g.boxes.cpu() - r.boxes)[same].abs().max().item()
     log(f"  one frame vs CPU plain path: max|score diff|={score_err:.3g}, "
-        f"same candidate {same.float().mean().item():.3f}, max|box diff|={box_err:.3g}")
+        f"same candidate {same.float().mean().item():.3f}, max|box diff|={box_err:.3g}, "
+        f"raw predictions max rel err {raw_rel_err(torch, model, cpu_model, img):.3g} of max|ref|")
     check(score_err < 1e-3 and same.float().mean().item() > 0.9 and box_err < 1e-4,
           "GPU main path disagrees with the CPU plain path")
     return model, launches
+
+
+def raw_rel_err(torch, model, cpu_model, img):
+    """One frame's raw predictions (the four head outputs) on the card against
+    the same weights on the CPU: max over the heads of max|diff| / max|ref|."""
+    from tdrn_tpu_torch.ops.preprocess import preprocess_batch
+
+    def raw(m, dev):
+        x = preprocess_batch(img.to(dev), m.cfg, m.dtype)
+        with torch.inference_mode():
+            return m(x, m.zero_state(1))[0]
+
+    g, r = raw(model, "cuda"), raw(cpu_model, "cpu")
+    return max(((a.cpu() - b).abs().max() / b.abs().max()).item() for a, b in zip(g, r))
 
 
 def time_streaming(torch, model, streams=16, steps=20, hw=(480, 640), prefilter=None):
@@ -359,13 +457,14 @@ def time_streaming(torch, model, streams=16, steps=20, hw=(480, 640), prefilter=
     for _ in range(3):
         det.detect(frames)
     torch.cuda.synchronize()
-    times = []
+    times, host = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
         det.detect(frames)
+        host.append(time.perf_counter() - t0)  # the host's enqueue, before the synchronize
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    return det, frames, statistics.median(times) * 1e3
+    return det, frames, statistics.median(times) * 1e3, statistics.median(host) * 1e3
 
 
 def profile_step(torch, det, frames, out_name, steps=3):
@@ -442,7 +541,6 @@ def serve_clients(server, frames, reset=None):
 def serving_path(torch, counters):
     from tdrn_tpu_torch.inference import StreamingDetector
     from tdrn_tpu_torch.models.detector import build_detector
-    from tdrn_tpu_torch.ops.preprocess import preprocess_batch
     from tdrn_tpu_torch.serving import InferenceServer
     from tdrn_tpu_torch.utils.precision import apply_inference_precision
 
@@ -492,16 +590,8 @@ def serving_path(torch, counters):
     # One frame's raw predictions against the port's CPU plain path in bf16.
     cpu_model = apply_inference_precision(build_detector(cfg, stem="fused2", device="cpu"), "bf16")
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    img = torch.tensor(frames[0, :1])
-
-    def raw(m, dev):
-        x = preprocess_batch(img.to(dev), cfg, m.dtype)
-        with torch.inference_mode():
-            return m(x, m.zero_state(1))[0]
-
     t0 = time.perf_counter()
-    g, r = raw(model, "cuda"), raw(cpu_model, "cpu")
-    rel = max(((a.cpu() - b).abs().max() / b.abs().max()).item() for a, b in zip(g, r))
+    rel = raw_rel_err(torch, model, cpu_model, torch.tensor(frames[0, :1]))
     log(f"  one frame vs CPU plain path, bf16 raw predictions: max rel err {rel:.3g} "
         f"of max|ref| ({time.perf_counter() - t0:.1f} s)")
     check(rel < BF16_REL_TOL, f"bf16 card predictions differ from the CPU by {rel} of max|ref|")
@@ -556,9 +646,8 @@ def main() -> int:
     log(f"build: nvcc sm_90a, {len(logs)} sources compiled in {time.perf_counter() - t0:.1f} s "
         f"into {_build.BUILD_DIR}")
     for name, out in logs.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for line in ptxas_summary(out):
+            log(f"  {name}: {line}")
 
     rng = np.random.default_rng(SEED)
     results = []
@@ -575,27 +664,28 @@ def main() -> int:
     log("serving path (resident bf16, fused2 stem, prefilter 512, InferenceServer):")
     model16, launches = serving_path(torch, counters + [fused_conv_stage])
 
-    _, _, step_ms = time_streaming(torch, model)
+    # Every timing runs before any profiling: a profiler session leaves host
+    # overhead behind, and the bf16 step is bound by the host.
+    _, _, step_ms, _ = time_streaming(torch, model)
     log(f"streaming vid_320 fp32 S=16 480x640, TF32 off: step {step_ms:.3f} ms, "
         f"{16 / step_ms * 1e3:.1f} frames/s on {card}")
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for cuDNN convs
-    det, frames, tf32_ms = time_streaming(torch, model)
-    log(f"streaming vid_320 fp32 S=16 480x640, cuDNN TF32 on: step {tf32_ms:.3f} ms, "
-        f"{16 / tf32_ms * 1e3:.1f} frames/s on {card}")
-    if "--profile" in sys.argv[1:]:
-        profile_step(torch, det, frames, "profile.txt")
+    det, frames, tf32_ms, host_ms = time_streaming(torch, model)
+    log(f"streaming vid_320 fp32 S=16 480x640, cuDNN TF32 on: step {tf32_ms:.3f} ms "
+        f"(host enqueue {host_ms:.3f} ms), {16 / tf32_ms * 1e3:.1f} frames/s on {card}")
     # The serving profile with cuDNN's default TF32 (its fp32 heads).
-    det16, frames16, bf16_ms = time_streaming(torch, model16, hw=(320, 320), prefilter=512)
-    log(f"streaming vid_320 bf16 fused2 S=16 320x320 prefilter 512: step {bf16_ms:.3f} ms, "
-        f"{16 / bf16_ms * 1e3:.1f} frames/s on {card}")
-    if "--profile" in sys.argv[1:]:
-        profile_step(torch, det16, frames16, "profile_bf16.txt")
+    det16, frames16, bf16_ms, host_ms = time_streaming(torch, model16, hw=(320, 320), prefilter=512)
+    log(f"streaming vid_320 bf16 fused2 S=16 320x320 prefilter 512: step {bf16_ms:.3f} ms "
+        f"(host enqueue {host_ms:.3f} ms), {16 / bf16_ms * 1e3:.1f} frames/s on {card}")
     fps, server_steps, lat = time_server(torch, model16)
     log(f"InferenceServer bf16, 16 concurrent clients x 16 frames: {fps:.1f} frames/s in "
         f"{server_steps} steps ({16 * 16 / server_steps:.2f} frames a step), "
         f"request latency {json.dumps(lat)} on {card}")
+    if "--profile" in sys.argv[1:]:
+        profile_step(torch, det, frames, "profile.txt")
+        profile_step(torch, det16, frames16, "profile_bf16.txt")
 
-    extra = ("ms_bf16_input", "ms_fp32_input")
+    extra = ("tflops", "cudnn_chain_ms", "ms_fp32_input", "ms_fp32_compute")
     kernels = [dict(name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"],
                     launches=launches[r["wrapper"]], max_abs_err=r["max_abs_err"],
                     ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exports a plain C function and is compiled on its own
 with nvcc for ``sm_90a`` into ``build/tdrn_tpu_torch/lib<name>_<hash>.so``
-under the repository root. The hash covers the source, its flags and the
-nvcc version, so a library is rebuilt exactly when one of them changes, at
-the first call that needs it. ``build_all`` starts every nvcc at once.
+under the repository root. The hash covers the source, the shared headers
+``csrc/*.cuh``, its flags and the nvcc version, so a library is rebuilt
+exactly when one of them changes, at the first call that needs it.
+``build_all`` starts every nvcc at once.
 
 Pointers and the CUDA stream go to the C functions as ``c_void_p``; each C
 function launches on the stream it is given, allocates nothing and returns
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
@@ -90,8 +92,10 @@ def _toolchain():
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(_CSRC, f"{name}.cu"), "rb") as f:
-        src = f.read()
+    src = b""
+    for path in [os.path.join(_CSRC, f"{name}.cu")] + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            src += f.read()
     flags = " ".join(_COMMON + _EXTRA[name])
     digest = hashlib.sha256(src + flags.encode() + _toolchain()[1].encode()).hexdigest()
     return os.path.join(BUILD_DIR, f"lib{name}_{digest[:16]}.so")

@@ -11,24 +11,43 @@
 // Bound on the H100: operations. At B=16 a launch is 181 GFLOP of bf16
 // products against 79 MB in and out (bf16), 0.183 ms at 989 TFLOP/s, so the
 // 160^2 x 128 conv1 activations must never reach device memory and the
-// products must run on the tensor cores. Design: one block per 8x8 tile of
-// pooled outputs (16x16 conv2 outputs) and 128 output channels, 8 warps,
-// bf16 mma.sync.m16n8k16 with fp32 accumulators (an implicit GEMM: each of
-// the nine taps is a shifted (pixels, Cin) @ (Cin, N) product, as in the TPU
-// kernel). The block stages its 20x20 input tile once; conv1 runs over the
-// 18x18 halo tile in passes of 32 mid channels (all nine taps of that k1
-// slice staged), writing bias + ReLU + ring-masked bf16 into shared memory;
-// conv2 then stages k2 one tap at a time. Every shared-memory row is padded
-// by 8 bf16 so the 8 rows x 4 column pairs that a warp's fragment loads touch
-// 32 distinct banks. The 2x2 pool is done on the accumulators: vertical pairs
-// are two m-tiles of the same thread, horizontal pairs are lanes 4 apart.
-// Known waste of this first version: conv1 is computed over the 18x18 halo
-// (1.27x its useful work), weights are re-read from L2 by every block, and
-// staging does not overlap the products (one block of 8 warps per SM).
+// products run on the tensor cores. Design: one block per 8x8 tile of pooled
+// outputs (16x16 conv2 outputs) and 128 output channels, 8 warps, bf16
+// mma.sync.m16n8k16 with fp32 accumulators: an implicit GEMM, each of the
+// nine taps a shifted (pixels, Cin) @ (Cin, N) product, as in the TPU kernel.
+// - The block copies its 20x20xCin input tile once. conv1 runs over the
+//   18x18 halo tile (21 m-tiles; warp w owns w, w+8 and w+16 < 21) in passes
+//   of 64 mid channels, writing bias + ReLU + ring-masked bf16 into a
+//   (324, Cmid + 8) o1 tile. conv2 then runs one tap at a time: warp (wm, wn)
+//   owns conv2 rows 4wm..4wm+3 (one m-tile of 16 pixels each) and channels
+//   64wn..64wn+63, 128 fp32 accumulators a thread.
+// - Weights stream through shared memory in slices, double-buffered: conv1
+//   in slices of 3 taps x Cin rows x 64 mid channels (27,648 B at Cin=64),
+//   conv2 in slices of one tap, Cmid rows x 128 channels (34,816 B). Slice
+//   s+1 is in flight while slice s is multiplied: one cp.async group and one
+//   __syncthreads a slice. With bf16 weights (the served case) each slice is
+//   a set of 16-byte cp.async copies straight from the HWIO rows, whose n
+//   is contiguous; the input tile is copied the same way, zero-filled
+//   outside the image. fp32 input and weights are converted on the way in,
+//   by plain loads and stores.
+// - Fragments come from shared memory by ldmatrix.x4: A plain, B transposed
+//   (.trans) from the k-major weight rows. A step of 32 (conv2) or 24
+//   (conv1) mma costs 8 or 7 ldmatrix.
+// - Every shared row is padded by 8 bf16 (rows of 144 or 272 B), so the 8
+//   rows of an ldmatrix phase touch 32 distinct banks.
+// - Shared memory at 64 -> 128 -> 128: input tile 57,600 B, o1 88,128 B,
+//   weight buffers 27,648 + 34,816 B; the second conv2 buffer reuses the
+//   input tile, dead once conv1 is done. 208,192 B, one block an SM.
+// - The 2x2 pool is done on the accumulators: vertical pairs are two m-tiles
+//   of the same thread, horizontal pairs are lanes 4 apart. Bias and ReLU
+//   come after the max (both monotone, so the order is exact).
+// Known waste: conv1 covers the 18x18 halo (1.27x its useful work), the
+// 1,600 blocks at B=16 run in 12.1 waves of 132, and each block re-reads the
+// weights from L2.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -38,40 +57,59 @@ constexpr int TO = TC + 2;        // conv1 outputs per tile side (1-pixel halo)
 constexpr int TX = TC + 4;        // input pixels per tile side (2-pixel halo)
 constexpr int NO1 = TO * TO;      // conv1 positions of a tile (324)
 constexpr int MT1 = (NO1 + 15) / 16;  // conv1 m-tiles of 16 positions (21)
-constexpr int NQ = 32;            // mid channels per conv1 pass
+constexpr int NQ = 64;            // mid channels per conv1 pass
+constexpr int TAPS1 = 3;          // taps per conv1 weight slice
 constexpr int NB = 128;           // output channels per block
 constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 constexpr int PAD = 8;            // bf16 padding of each shared-memory row
 
-typedef __nv_bfloat16 bf16;
+// Byte offsets into dynamic shared memory. The last conv1 slice always goes
+// to s1a, so the first conv2 slice (s2a) can load while it is multiplied;
+// s2b reuses the input tile when it fits.
+struct Layout {
+  int o1, s1a, s1b, s2a, s2b, total;
+};
 
-// Shared memory in bf16 elements: input tile, conv1 tile, weight stage.
-__host__ __device__ constexpr size_t xs_elems(int cin) { return (size_t)TX * TX * (cin + PAD); }
-__host__ __device__ constexpr size_t o1_elems(int cmid) { return (size_t)NO1 * (cmid + PAD); }
-__host__ __device__ constexpr size_t ws_elems(int cin, int cmid) {
-  return (size_t)9 * NQ * (cin + PAD) > (size_t)NB * (cmid + PAD)
-             ? (size_t)9 * NQ * (cin + PAD)
-             : (size_t)NB * (cmid + PAD);
+__host__ __device__ inline Layout layout(int cin, int cmid) {
+  const int xs = TX * TX * (cin + PAD) * 2, o1 = NO1 * (cmid + PAD) * 2;
+  const int s1 = TAPS1 * cin * (NQ + PAD) * 2, s2 = cmid * (NB + PAD) * 2;
+  const int w = xs + o1;
+  Layout l;
+  l.o1 = xs;
+  l.s1a = w;
+  l.s1b = l.s2a = w + s1;
+  l.total = w + s1 + (s1 > s2 ? s1 : s2);
+  if (s2 <= xs) {
+    l.s2b = 0;
+  } else {
+    l.s2b = l.total;
+    l.total += s2;
+  }
+  return l;
 }
-__host__ __device__ constexpr size_t smem_bytes(int cin, int cmid) {
-  return 2 * (xs_elems(cin) + o1_elems(cmid) + ws_elems(cin, cmid));
+
+// 16 bytes (8 bf16) into shared memory, zeros where !in. bf16 source: an
+// asynchronous copy; fp32 source: eight floats converted to bf16.
+__device__ __forceinline__ void copy16(bf16* dst, const bf16* src, bool in = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0));
 }
-
-__device__ __forceinline__ bf16 to_bf16(float v) { return __float2bfloat16_rn(v); }
-__device__ __forceinline__ bf16 to_bf16(bf16 v) { return v; }
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void copy16(bf16* dst, const float* src, bool in = true) {
+  uint4 v = make_uint4(0, 0, 0, 0);
+  if (in) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(src));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(src) + 1);
+    v = make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y),
+                   pack_bf16(b.z, b.w));
+  }
+  *reinterpret_cast<uint4*>(dst) = v;
 }
-
-// d += a (16x16, row) * b (16x8, col); bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma16816(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 template <typename T, bool OUT_BF16>
@@ -81,90 +119,112 @@ conv_stage_kernel(const T* __restrict__ x, const T* __restrict__ k1,
                   const float* __restrict__ b2, void* __restrict__ out, int H,
                   int W, int Cin, int Cmid, int Cout) {
   extern __shared__ float4 smem4[];
-  bf16* xs = reinterpret_cast<bf16*>(smem4);  // [TX*TX][Cin+PAD]
-  bf16* o1s = xs + xs_elems(Cin);             // [NO1][Cmid+PAD]
-  bf16* ws = o1s + o1_elems(Cmid);            // conv1: [9][NQ][Cin+PAD]; conv2: [NB][Cmid+PAD]
+  char* sm = reinterpret_cast<char*>(smem4);
+  const Layout L = layout(Cin, Cmid);
+  bf16* xs = reinterpret_cast<bf16*>(sm);  // [TX*TX][Cin+PAD]
+  bf16* o1s = reinterpret_cast<bf16*>(sm + L.o1);  // [NO1][Cmid+PAD]
   const int xst = Cin + PAD, ost = Cmid + PAD;
+  constexpr int S1ST = NQ + PAD, S2ST = NB + PAD;  // weight slice row strides
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;  // mma groupID, thread in group
+  const int lr = (lane & 7) + ((lane >> 3) & 1) * 8, lc = (lane >> 4) * 8;  // ldmatrix row, col
   const int nslices = Cout / NB;
   const int b = blockIdx.z / nslices;
   const int nb0 = (blockIdx.z % nslices) * NB;
   const int y0 = blockIdx.y * TC, x0 = blockIdx.x * TC;  // conv2 tile origin
+  const int S1 = TAPS1 * (Cmid / NQ);  // conv1 weight slices; conv2's follow
 
-  // Input tile, rows y0-2 .. y0+TC+1, zero outside the image (conv1 padding).
-  for (int t = tid; t < TX * TX * Cin; t += THREADS) {
-    const int ci = t % Cin, pos = t / Cin;
+  // Weight slice s: conv1 pass s / 3, taps 3*(s % 3) .. +2 (rows of k1 as
+  // (9*Cin, Cmid)); then conv2 tap s - S1 (rows of k2 as (9*Cmid, Cout)).
+  auto slice = [&](int s) -> bf16* {
+    if (s < S1) return reinterpret_cast<bf16*>(sm + ((S1 - 1 - s) & 1 ? L.s1b : L.s1a));
+    return reinterpret_cast<bf16*>(sm + ((s - S1) & 1 ? L.s2b : L.s2a));
+  };
+  auto stage = [&](int s) {
+    bf16* dst = slice(s);
+    if (s < S1) {
+      const int row0 = (s % 3) * TAPS1 * Cin, q0 = (s / 3) * NQ;
+      for (int c = tid; c < TAPS1 * Cin * (NQ / 8); c += THREADS) {
+        const int r = c / (NQ / 8), col = (c % (NQ / 8)) * 8;
+        copy16(dst + r * S1ST + col, k1 + (long)(row0 + r) * Cmid + q0 + col);
+      }
+    } else {
+      const long row0 = (long)(s - S1) * Cmid;
+      for (int c = tid; c < Cmid * (NB / 8); c += THREADS) {
+        const int r = c / (NB / 8), col = (c % (NB / 8)) * 8;
+        copy16(dst + r * S2ST + col, k2 + (row0 + r) * Cout + nb0 + col);
+      }
+    }
+  };
+
+  // Input tile, rows y0-2 .. y0+TC+1, zero outside the image (conv1 padding),
+  // with the first weight slice in the same group.
+  for (int c = tid; c < TX * TX * (Cin / 8); c += THREADS) {
+    const int pos = c / (Cin / 8), ch = (c % (Cin / 8)) * 8;
     const int gy = y0 - 2 + pos / TX, gx = x0 - 2 + pos % TX;
-    bf16 v = __float2bfloat16_rn(0.f);
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-      v = to_bf16(x[(((long)b * H + gy) * W + gx) * Cin + ci]);
-    xs[pos * xst + ci] = v;
+    const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    copy16(xs + pos * xst + ch, x + (in ? (((long)b * H + gy) * W + gx) * Cin + ch : 0), in);
   }
+  stage(0);
+  cp_async_commit();
 
   // ---- conv1 over the TO x TO halo tile, NQ mid channels a pass ----------
-  // Warp w owns m-tiles w, w+8, w+16; the third exists for w < MT1-16 and is
-  // otherwise a repeat of the last tile whose results are dropped.
-  int xoff[3][2];  // input-tile position of rows g and g+8 of each m-tile (tap 0)
-  bool own3 = warp + 16 < MT1;
+  const bool own3 = warp + 16 < MT1;
+  int xoff[3];  // input-tile offset of this lane's ldmatrix row of each m-tile (tap 0)
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    const int mt = i < 2 ? warp + 8 * i : (own3 ? warp + 16 : MT1 - 1);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = min(mt * 16 + g + 8 * h, NO1 - 1);
-      xoff[i][h] = ((p / TO) * TX + p % TO) * xst + 2 * tig;
-    }
+    const int p = min((warp + 8 * i) * 16 + lr, NO1 - 1);
+    xoff[i] = ((p / TO) * TX + p % TO) * xst + lc;
   }
-  for (int q0 = 0; q0 < Cmid; q0 += NQ) {
-    __syncthreads();  // the input tile is stored; the previous pass's readers are done
-    for (int t = tid; t < 9 * Cin * NQ; t += THREADS) {
-      const int n = t % NQ, ci = (t / NQ) % Cin, tap = t / (NQ * Cin);
-      ws[(tap * NQ + n) * xst + ci] = to_bf16(k1[((long)tap * Cin + ci) * Cmid + q0 + n]);
+  float acc1[3][NQ / 8][4];
+  for (int s = 0; s < S1; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // slice s has landed; every reader of slice s-1 is done
+    stage(s + 1);     // the next conv1 slice, or conv2's first
+    cp_async_commit();
+    const int part = s % 3;
+    if (part == 0) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int nt = 0; nt < NQ / 8; ++nt)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc1[i][nt][r] = 0.f;
     }
-    __syncthreads();
-
-    float acc[3][NQ / 8][4];
+    const bf16* wb = slice(s) + lr * S1ST + lc;
 #pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int nt = 0; nt < NQ / 8; ++nt)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[i][nt][r] = 0.f;
-
-    for (int tap = 0; tap < 9; ++tap) {
-      const int shift = ((tap / 3) * TX + tap % 3) * xst;
-      const bf16* wb = ws + (tap * NQ + g) * xst + 2 * tig;
+    for (int tl = 0; tl < TAPS1; ++tl) {
+      const int shift = (part * TX + tl) * xst;  // tap (dy, dx) = (part, tl)
+#pragma unroll 2
       for (int kk = 0; kk < Cin; kk += 16) {
-        uint32_t a[3][4];
+        uint32_t bq[NQ / 16][4];
+#pragma unroll
+        for (int np = 0; np < NQ / 16; ++np)
+          ldsm_x4_t(bq[np], wb + (tl * Cin + kk) * S1ST + 16 * np);
 #pragma unroll
         for (int i = 0; i < 3; ++i) {
-          const bf16* p0 = xs + xoff[i][0] + shift + kk;
-          const bf16* p1 = xs + xoff[i][1] + shift + kk;
-          a[i][0] = ld32(p0);
-          a[i][1] = ld32(p1);
-          a[i][2] = ld32(p0 + 8);
-          a[i][3] = ld32(p1 + 8);
-        }
+          if (i == 2 && !own3) break;
+          uint32_t a[4];
+          ldsm_x4(a, xs + xoff[i] + shift + kk);
 #pragma unroll
-        for (int nt = 0; nt < NQ / 8; ++nt) {
-          const uint32_t w0 = ld32(wb + nt * 8 * xst + kk);
-          const uint32_t w1 = ld32(wb + nt * 8 * xst + kk + 8);
-#pragma unroll
-          for (int i = 0; i < 3; ++i) mma16816(acc[i][nt], a[i], w0, w1);
+          for (int np = 0; np < NQ / 16; ++np) {
+            mma16816(acc1[i][2 * np], a, bq[np][0], bq[np][1]);
+            mma16816(acc1[i][2 * np + 1], a, bq[np][2], bq[np][3]);
+          }
         }
       }
     }
+    if (part != 2) continue;
 
     // Bias + ReLU, zero outside the image, round to bf16, store.
+    const int q0 = (s / 3) * NQ;
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
       if (i == 2 && !own3) break;
-      const int mt = warp + 8 * i;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int p = mt * 16 + g + 8 * h;
+        const int p = (warp + 8 * i) * 16 + g + 8 * h;
         if (p >= NO1) continue;
         const int gy = y0 - 1 + p / TO, gx = x0 - 1 + p % TO;
         const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
@@ -173,18 +233,16 @@ conv_stage_kernel(const T* __restrict__ x, const T* __restrict__ k1,
           const int n = q0 + nt * 8 + 2 * tig;
           float v0 = 0.f, v1 = 0.f;
           if (inside) {
-            v0 = fmaxf(acc[i][nt][2 * h] + b1[n], 0.f);
-            v1 = fmaxf(acc[i][nt][2 * h + 1] + b1[n + 1], 0.f);
+            v0 = fmaxf(acc1[i][nt][2 * h] + b1[n], 0.f);
+            v1 = fmaxf(acc1[i][nt][2 * h + 1] + b1[n + 1], 0.f);
           }
-          *reinterpret_cast<__nv_bfloat162*>(o1s + p * ost + n) =
-              __halves2bfloat162(to_bf16(v0), to_bf16(v1));
+          *reinterpret_cast<uint32_t*>(o1s + p * ost + n) = pack_bf16(v0, v1);
         }
       }
     }
   }
 
-  // ---- conv2 over the TC x TC tile: warp (wm, wn) owns conv2 rows
-  // 4*wm .. 4*wm+3 (one m-tile of 16 pixels each) and channels 64*wn .. +63.
+  // ---- conv2 over the TC x TC tile, one tap a slice ------------------------
   const int wm = warp & 3, wn = warp >> 2;
   float acc[4][8][4];
 #pragma unroll
@@ -194,32 +252,30 @@ conv_stage_kernel(const T* __restrict__ x, const T* __restrict__ k1,
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[i][nt][r] = 0.f;
 
+  const bf16* ab = o1s + (4 * wm * TO + lr) * ost + lc;
   for (int tap = 0; tap < 9; ++tap) {
-    __syncthreads();  // conv1 is stored; the previous tap's readers are done
-    for (int t = tid; t < Cmid * NB; t += THREADS) {
-      const int n = t % NB, m = t / NB;
-      ws[n * ost + m] = to_bf16(k2[((long)tap * Cmid + m) * Cout + nb0 + n]);
+    cp_async_wait_all();
+    __syncthreads();  // this tap's slice (and, at tap 0, conv1's output) is in place
+    if (tap < 8) {
+      stage(S1 + tap + 1);
+      cp_async_commit();
     }
-    __syncthreads();
-    const int dy = tap / 3, dx = tap % 3;
-    const bf16* ab = o1s + ((4 * wm + dy) * TO + g + dx) * ost + 2 * tig;
-    const bf16* wb = ws + (64 * wn + g) * ost + 2 * tig;
+    const bf16* at = ab + ((tap / 3) * TO + tap % 3) * ost;
+    const bf16* wb = slice(S1 + tap) + lr * S2ST + 64 * wn + lc;
+#pragma unroll 2
     for (int kk = 0; kk < Cmid; kk += 16) {
-      uint32_t a[4][4];
+      uint32_t bq[4][4];
+#pragma unroll
+      for (int np = 0; np < 4; ++np) ldsm_x4_t(bq[np], wb + kk * S2ST + 16 * np);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const bf16* p0 = ab + i * TO * ost + kk;
-        a[i][0] = ld32(p0);
-        a[i][1] = ld32(p0 + 8 * ost);
-        a[i][2] = ld32(p0 + 8);
-        a[i][3] = ld32(p0 + 8 * ost + 8);
-      }
+        uint32_t a[4];
+        ldsm_x4(a, at + i * TO * ost + kk);
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const uint32_t w0 = ld32(wb + nt * 8 * ost + kk);
-        const uint32_t w1 = ld32(wb + nt * 8 * ost + kk + 8);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) mma16816(acc[i][nt], a[i], w0, w1);
+        for (int np = 0; np < 4; ++np) {
+          mma16816(acc[i][2 * np], a, bq[np][0], bq[np][1]);
+          mma16816(acc[i][2 * np + 1], a, bq[np][2], bq[np][3]);
+        }
       }
     }
   }
@@ -247,8 +303,7 @@ conv_stage_kernel(const T* __restrict__ x, const T* __restrict__ k1,
         v1 = fmaxf(v1 + bias1, 0.f);
         const long o = (((long)b * Ho + oy) * Wo + ox) * Cout + n;
         if (OUT_BF16)
-          *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<bf16*>(out) + o) =
-              __halves2bfloat162(to_bf16(v0), to_bf16(v1));
+          *reinterpret_cast<uint32_t*>(reinterpret_cast<bf16*>(out) + o) = pack_bf16(v0, v1);
         else
           *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + o) = make_float2(v0, v1);
       }
@@ -260,12 +315,11 @@ template <typename T, bool OUT_BF16>
 cudaError_t launch(const void* x, const void* k1, const float* b1, const void* k2,
                    const float* b2, void* out, int B, int H, int W, int Cin,
                    int Cmid, int Cout, cudaStream_t stream) {
-  const size_t smem = smem_bytes(Cin, Cmid);
-  static size_t configured = 0;  // the largest size already allowed
+  const int smem = layout(Cin, Cmid).total;
+  static int configured = 0;  // the largest size already allowed
   if (smem > 48 * 1024 && smem > configured) {
     cudaError_t e = cudaFuncSetAttribute(conv_stage_kernel<T, OUT_BF16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     configured = smem;
   }
@@ -279,15 +333,16 @@ cudaError_t launch(const void* x, const void* k1, const float* b1, const void* k
 }  // namespace
 
 // x (B,H,W,Cin) NHWC, k1 (3,3,Cin,Cmid), k2 (3,3,Cmid,Cout) HWIO, all fp32
-// (in_bf16=0) or all bf16 (in_bf16=1); b1, b2 fp32; out (B,H/2,W/2,Cout)
-// fp32 or bf16 (out_bf16). Cin a multiple of 16, Cmid of 32, Cout of 128.
+// (in_bf16=0) or all bf16 (in_bf16=1), each 16-byte aligned; b1, b2 fp32;
+// out (B,H/2,W/2,Cout) fp32 or bf16 (out_bf16). Cin a multiple of 16, Cmid
+// of 64, Cout of 128.
 extern "C" int tdrn_conv_stage(const void* x, const void* k1, const float* b1,
                                const void* k2, const float* b2, void* out, int B,
                                int H, int W, int Cin, int Cmid, int Cout,
                                int in_bf16, int out_bf16, void* stream) {
   if (B < 1 || H < 2 || W < 2 || H % 2 || W % 2 || Cin < 16 || Cin % 16 ||
       Cmid < NQ || Cmid % NQ || Cout < NB || Cout % NB ||
-      smem_bytes(Cin, Cmid) > 227 * 1024)
+      layout(Cin, Cmid).total > 227 * 1024)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (in_bf16)

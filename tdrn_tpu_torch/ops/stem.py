@@ -64,6 +64,11 @@ def _validate(x, k1, b1, k2, b2, compute_dtype, out_dtype) -> torch.dtype:
 
 def _launch(name, x, k1, b1, k2, b2, out, flags) -> None:
     bsz, h, w, cin = x.shape
+    # Both kernels copy the weights in 16-byte chunks, K4 its input as well.
+    chunked = {"k1": k1, "k2": k2} if name == "stem" else {"x": x, "k1": k1, "k2": k2}
+    for arg, t in chunked.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{arg}: the {name} kernel needs a 16-byte aligned tensor")
     b1, b2 = b1.float(), b2.float()  # held until the launch is enqueued
     with torch.cuda.device(x.device):
         err = _build.entry(name)(
@@ -85,6 +90,10 @@ def fused_stem_stage1(
     x: (B, H, W, Cin) float32 or bfloat16; k1: (3, 3, Cin, N); k2: (3, 3, N, N);
     b1, b2: (N,). Returns (B, H//2, W//2, N) in ``out_dtype`` (default
     x.dtype), NHWC. H and W must be even.
+
+    On the card, ``compute_dtype=torch.bfloat16`` runs the tensor-core kernel
+    (Cin <= 3, N = 64: VGG's stage 1) and ``torch.float32`` the CUDA-core one
+    (N a multiple of 64); the launch counter counts both.
     """
     out_dtype = _validate(x, k1, b1, k2, b2, compute_dtype, out_dtype)
     n = k1.shape[-1]
@@ -92,9 +101,13 @@ def fused_stem_stage1(
         raise ValueError(f"k2 must be (3, 3, {n}, {n}), got {tuple(k2.shape)}")
     if _build.route(x, k1, b1, k2, b2) == "cpu":
         return stem_plain(x, k1, b1, k2, b2, compute_dtype, out_dtype)
+    bsz, h, w, cin = x.shape
+    if compute_dtype == torch.bfloat16 and (n != 64 or cin > 3):
+        raise ValueError(
+            f"the bf16 stem kernel takes Cin <= 3 and 64 channels, got {cin} and {n}"
+        )
     if n % 64:
-        raise ValueError(f"the stem kernel takes a multiple of 64 channels, got {n}")
-    bsz, h, w, _ = x.shape
+        raise ValueError(f"the fp32 stem kernel takes a multiple of 64 channels, got {n}")
     out = torch.empty((bsz, h // 2, w // 2, n), dtype=out_dtype, device=x.device)
     _launch("stem", x, k1, b1, k2, b2, out, [int(compute_dtype == torch.bfloat16)])
     fused_stem_stage1.launches += 1
@@ -114,7 +127,7 @@ def fused_conv_stage(
     Cout) -> (B, H//2, W//2, Cout) in ``out_dtype`` (default x.dtype).
 
     The kernel computes on bf16 tensor cores, so on the card it takes
-    ``compute_dtype=torch.bfloat16`` only, Cin a multiple of 16, Cmid of 32
+    ``compute_dtype=torch.bfloat16`` only, Cin a multiple of 16, Cmid of 64
     and Cout of 128.
     """
     out_dtype = _validate(x, k1, b1, k2, b2, compute_dtype, out_dtype)
@@ -124,9 +137,9 @@ def fused_conv_stage(
     cmid, cout = k1.shape[-1], k2.shape[-1]
     if compute_dtype != torch.bfloat16:
         raise ValueError("the conv-stage kernel computes in bfloat16 only")
-    if cin % 16 or cmid % 32 or cout % 128:
+    if cin % 16 or cmid % 64 or cout % 128:
         raise ValueError(
-            f"the conv-stage kernel takes Cin % 16, Cmid % 32 and Cout % 128 == 0, "
+            f"the conv-stage kernel takes Cin % 16, Cmid % 64 and Cout % 128 == 0, "
             f"got {cin}, {cmid}, {cout}"
         )
     out = torch.empty((bsz, h // 2, w // 2, cout), dtype=out_dtype, device=x.device)

@@ -1,8 +1,10 @@
 """Rules of the port that hold without a GPU: it imports no JAX and nothing of
 tdrn_tpu; its entry points refuse to run on a CUDA-less machine unless asked
 for the CPU; its kernel wrappers reject what their kernels do not take and
-never hand a non-CPU tensor to the plain version."""
+never hand a non-CPU tensor to the plain version; the ctypes signatures
+match the CUDA sources' entry points."""
 
+import ctypes
 import os
 import re
 import subprocess
@@ -55,7 +57,7 @@ _FORBIDDEN = re.compile(
 
 
 def test_source_names_no_jax_import():
-    for path in [os.path.join(ROOT, "chip_smoke.py")] + [
+    for path in [os.path.join(ROOT, f) for f in ("chip_smoke.py", "chip_compare.py")] + [
         os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")
     ]:
         with open(path) as fh:
@@ -63,6 +65,42 @@ def test_source_names_no_jax_import():
         assert hit is None, f"{path}: {hit.group(0)!r}"
     assert _FORBIDDEN.search("from tdrn_tpu_torch.ops import nms") is None
     assert _FORBIDDEN.search("import tdrn_tpu.ops") is not None
+
+
+_EXTERN_C = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)')
+_CTYPE = {"ptr": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
+
+
+def _param_kind(param: str) -> str:
+    """'ptr', 'int' or 'float' for one C parameter declaration."""
+    if "*" in param:
+        return "ptr"
+    words = param.replace("const", " ").split()
+    assert len(words) == 2 and words[0] in ("int", "float"), param
+    return words[0]
+
+
+def test_entry_point_signatures_match_the_sources():
+    """Every extern "C" function in csrc/*.cu has a _build._SIGNATURES entry
+    under its file's name with the same name, arity and pointer/int/float
+    kinds, and every entry has such a function: otherwise ctypes would pass
+    a pointer as a 32-bit int, or the wrong number of arguments."""
+    csrc = os.path.join(PKG, "csrc")
+    found = {}
+    for f in sorted(os.listdir(csrc)):
+        if f.endswith(".cu"):
+            with open(os.path.join(csrc, f)) as fh:
+                for fn, params in _EXTERN_C.findall(fh.read()):
+                    kinds = [_CTYPE[_param_kind(p)] for p in params.split(",")]
+                    found[fn] = (f[:-3], kinds)
+    assert len(found) == len(_build._SIGNATURES) == 4
+    for name, (fn, argtypes) in _build._SIGNATURES.items():
+        assert fn in found, f"{name}: no extern \"C\" {fn} in csrc/"
+        src, kinds = found[fn]
+        assert src == name, f"{fn} is in {src}.cu, expected {name}.cu"
+        assert argtypes == kinds, f"{fn}: _SIGNATURES {argtypes} against the source's {kinds}"
+    assert _param_kind("const void* x") == "ptr" and _param_kind("int B") == "int"
+    assert _param_kind("float iou_thresh") == "float"
 
 
 def test_entry_points_refuse_without_cuda():

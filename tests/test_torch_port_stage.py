@@ -37,10 +37,11 @@ SMALL = dict(tcb_channels=32, width_mult=0.125)
 STAGE_BF16_REL_TOL = 1e-3
 
 
-def _stage_inputs(cin, cmid, cout, seed):
-    """The shapes and scales of tests/test_stem_pallas.py's stage test."""
+def _stage_inputs(cin, cmid, cout, seed, h=64, w=32):
+    """The scales of tests/test_stem_pallas.py's stage test, at its shape
+    (1, 64, 32) unless h, w are given."""
     rng = np.random.default_rng(seed)
-    b, h, w = 1, 64, 32
+    b = 1
     return [
         rng.normal(size=(b, h, w, cin)).astype("f4"),
         (rng.normal(size=(3, 3, cin, cmid)) * 0.2).astype("f4"),
@@ -50,18 +51,24 @@ def _stage_inputs(cin, cmid, cout, seed):
     ]
 
 
-@pytest.mark.parametrize("cin,cmid,cout", [(8, 16, 16), (16, 8, 24)])
-def test_conv_stage_plain_matches_jax_fp32(cin, cmid, cout):
-    args = _stage_inputs(cin, cmid, cout, seed=3)
+# (8, 16, 16) at 32x52: W ragged, the last 16-wide tile of the card's kernel
+# is partial, as in chip_smoke.py's ragged check (the JAX function needs
+# H % 8 == 0).
+STAGE_CASES = [(8, 16, 16, 64, 32), (16, 8, 24, 64, 32), (8, 16, 16, 32, 52)]
+
+
+@pytest.mark.parametrize("cin,cmid,cout,h,w", STAGE_CASES)
+def test_conv_stage_plain_matches_jax_fp32(cin, cmid, cout, h, w):
+    args = _stage_inputs(cin, cmid, cout, seed=3, h=h, w=w)
     got = fused_conv_stage(*map(T, args), compute_dtype=torch.float32)
     ref = j_stage(*map(jnp.asarray, args), compute_dtype=jnp.float32, interpret=True)
-    assert got.shape == (1, 32, 16, cout) == ref.shape and got.dtype == torch.float32
+    assert got.shape == (1, h // 2, w // 2, cout) == ref.shape and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("cin,cmid,cout", [(8, 16, 16), (16, 8, 24)])
-def test_conv_stage_plain_matches_jax_bf16(cin, cmid, cout):
-    args = _stage_inputs(cin, cmid, cout, seed=4)
+@pytest.mark.parametrize("cin,cmid,cout,h,w", STAGE_CASES)
+def test_conv_stage_plain_matches_jax_bf16(cin, cmid, cout, h, w):
+    args = _stage_inputs(cin, cmid, cout, seed=4, h=h, w=w)
     got = fused_conv_stage(*map(T, args))
     ref = np.asarray(j_stage(*map(jnp.asarray, args), interpret=True), "f4")
     rel = np.abs(got.numpy() - ref).max() / np.abs(ref).max()
