@@ -14,7 +14,10 @@ the same seeded random weights and the same frames:
   in a synchronize, and the median host time of the detect() call alone,
   before that synchronize (the enqueue);
 - InferenceServer with 16 concurrent clients x 16 frames: frames/s, frames a
-  step, p50/p99 request latency.
+  step, p50/p99 request latency;
+- K1 and K2 alone at the main path's shapes (B=16; 496 rows of 200), on the
+  same seeded inputs in every run, with this checkout's chip_smoke.time_ms,
+  so that a kernel of either checkout is timed the same way.
 It prints the card line, one JSON line a run, and last the medians of each
 checkout's two runs. It checks nothing: chip_smoke.py does.
 """
@@ -41,6 +44,27 @@ def _smoke():
     return mod
 
 
+def kernel_times(torch, smoke) -> dict:
+    """Median device ms of K1 and K2 of the checkout under test."""
+    import numpy as np
+
+    from tdrn_tpu_torch.config import VID_320
+    from tdrn_tpu_torch.ops.cascade import fused_refine_cascade
+    from tdrn_tpu_torch.ops.nms_suppress import suppress_sorted
+    from tdrn_tpu_torch.ops.priors import prior_boxes
+
+    cfg = VID_320
+    rng = np.random.default_rng(smoke.SEED)
+    preds = smoke._cascade_inputs(torch, rng, smoke.B, cfg.num_priors, cfg.num_classes)
+    priors = prior_boxes(cfg, torch.device("cuda"))
+    boxes, scores = smoke._nms_rows(rng, smoke.B * cfg.num_classes, cfg.top_k)
+    boxes, scores = torch.tensor(boxes, device="cuda"), torch.tensor(scores, device="cuda")
+    return dict(
+        k1_ms=smoke.time_ms(torch, lambda: fused_refine_cascade(preds, priors, cfg)),
+        k2_ms=smoke.time_ms(torch, lambda: suppress_sorted(boxes, scores, cfg.nms_thresh)),
+    )
+
+
 def worker(root: str) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
@@ -55,7 +79,7 @@ def worker(root: str) -> dict:
     smoke = _smoke()
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for cuDNN convs
     _build.build_all()
-    out = {"root": root}
+    out = {"root": root, **kernel_times(torch, smoke)}
     cfg = dataclasses.replace(VID_320, fused_cascade=True)
     fp32 = smoke.random_params(build_detector(cfg, stem="fused"), smoke.SEED)
     _, _, out["fp32_step_ms"], out["fp32_host_ms"] = smoke.time_streaming(torch, fp32)

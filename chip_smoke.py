@@ -12,7 +12,17 @@
    one nvcc per source, all at once, into build/tdrn_tpu_torch/.
 3. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (B=16, vid_320), and times both with CUDA events
-   (median of 30 launches after warm-up, L2 flushed by a read before each).
+   (median of 30 launches after warm-up, L2 flushed by a read before each,
+   then the card held busy for about 0.1 ms so the events time the card
+   and not the host's launch).
+   K1 also at B=3, P=1000, C=21 and C=2 with its logits starting 0-3 floats
+   off a 16-byte boundary and with NaN logits, its per-anchor max bit-equal
+   to scores_cm.amax(1), NaN included. K2 also at K in 1, 63, 64, 65, 200, 256, 1024 with one
+   row and with 496, thresholds 0 and 0.45, empty rows and rows whose
+   positive scores end early or hold zeros, bit-equal to its plain version
+   on the card and on the CPU. For K1 and K2 the time warm and three more
+   flushed medians are logged beside the flushed one, and K2's time on rows
+   that end at 16 of 200.
    K3 and K4 run on fp32 and on bf16 input, and at a ragged shape (B=2,
    44x52: the last tile partial in both axes); K3 on bf16 input must equal
    K3 on the same values in fp32 bit for bit, and K3's fp32-compute route
@@ -111,16 +121,25 @@ def ptxas_summary(out: str):
     return lines
 
 
-def time_ms(torch, fn, reps=30, warmup=5):
+SPIN_CYCLES = 200_000  # about 0.1 ms of the card's clock
+
+
+def time_ms(torch, fn, reps=30, warmup=5, flush_l2=True):
     """Median device time of one call of fn, with the L2 cache flushed before
     each by reading a buffer twice its size (a read leaves no dirty lines
-    for the timed call to write back)."""
+    for the timed call to write back); flush_l2=False times it warm, each
+    call after the last with nothing between. The card then spins for
+    SPIN_CYCLES before the start event, so the host has enqueued fn's
+    launches before the card reaches them and the events time the card
+    alone, not the gap in which it waits for a launch."""
     flush = torch.ones(100 * 2**20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     events = []
     for _ in range(reps):
-        flush.max()
+        if flush_l2:
+            flush.max()
+        torch.cuda._sleep(SPIN_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -129,6 +148,14 @@ def time_ms(torch, fn, reps=30, warmup=5):
         events.append((s, e))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def time_spread(torch, fn):
+    """The flushed median, the warm median and three more flushed medians,
+    each of 30 launches, in this order."""
+    ms = time_ms(torch, fn)
+    warm = time_ms(torch, fn, flush_l2=False)
+    return dict(ms=ms, ms_warm=warm, ms_repeats=[time_ms(torch, fn) for _ in range(3)])
 
 
 def bound(bytes_moved: float, ops: float, peak_ops: float):
@@ -144,35 +171,97 @@ def check(cond, msg):
 # --- kernel phases ---------------------------------------------------------
 
 
+def _cascade_inputs(torch, rng, b, p, c, lead=0):
+    """Seeded K1 inputs on the card. odm_conf and arm_conf are contiguous
+    views that start `lead` floats into a buffer of their own, so their rows
+    (and the blocks' logit tiles) can start off a 16-byte boundary."""
+    from tdrn_tpu_torch.ops.detection import RawPredictions
+
+    def t(a, lead=0):
+        a = a.astype(np.float32)
+        flat = torch.empty(lead + a.size, device="cuda")
+        flat[lead:] = torch.tensor(a.ravel(), device="cuda")
+        return flat[lead:].view(a.shape)
+
+    return RawPredictions(
+        t(rng.normal(size=(b, p, 4)) * 0.5), t(rng.normal(size=(b, p, 2)) * 2, lead),
+        t(rng.normal(size=(b, p, 4)) * 0.5), t(rng.normal(size=(b, p, c)) * 2, lead),
+    )
+
+
+def _same(a, b):
+    """Bit-equal, NaN in the same places counting as equal."""
+    return a.isnan().equal(b.isnan()) and a.nan_to_num().equal(b.nan_to_num())
+
+
+def _check_cascade(torch, preds, priors, cfg, what):
+    """K1 against its plain version (NaN where it has NaN), and its
+    per-anchor output bit-equal to scores_cm.amax(dim=1); returns
+    max|kernel - plain| over the values that are not NaN, and the number of
+    NaN per-anchor values."""
+    from tdrn_tpu_torch.ops.cascade import cascade_plain, fused_refine_cascade
+
+    b, p = preds.arm_loc.shape[:2]
+    top = torch.full((b, p), -1.0, device="cuda")
+    kb, ks = fused_refine_cascade(preds, priors, cfg, top)
+    nb, ns = fused_refine_cascade(preds, priors, cfg)
+    pb, ps = cascade_plain(*preds, priors, *cfg.variance, cfg.arm_filter_thresh)
+    torch.cuda.synchronize()
+    err = max((kb - pb).nan_to_num().abs().max().item(), (ks - ps).nan_to_num().abs().max().item())
+    close = lambda x, y: torch.allclose(x, y, atol=K1_ATOL, rtol=K1_RTOL, equal_nan=True)
+    check(close(kb, pb), f"K1 {what}: boxes differ ({err})")
+    check(close(ks, ps), f"K1 {what}: scores differ ({err})")
+    check(_same(top, ks.amax(dim=1)), f"K1 {what}: per-anchor max differs from scores_cm.amax(1)")
+    check(_same(nb, kb) and _same(ns, ks), f"K1 {what}: the per-anchor output changed boxes or scores")
+    return err, int(top.isnan().sum())
+
+
 def phase_cascade(torch, rng):
     from tdrn_tpu_torch.config import VID_320
     from tdrn_tpu_torch.ops.cascade import cascade_plain, fused_refine_cascade
-    from tdrn_tpu_torch.ops.detection import RawPredictions
     from tdrn_tpu_torch.ops.priors import prior_boxes
 
     cfg = VID_320
     p, c = cfg.num_priors, cfg.num_classes
     dev = torch.device("cuda")
-    t = lambda a: torch.tensor(a.astype(np.float32), device=dev)
-    preds = RawPredictions(
-        t(rng.normal(size=(B, p, 4)) * 0.5), t(rng.normal(size=(B, p, 2)) * 2),
-        t(rng.normal(size=(B, p, 4)) * 0.5), t(rng.normal(size=(B, p, c)) * 2),
-    )
+    # Main shape: P * C = 197,625 floats an image, so image b's logits start
+    # b floats off a 16-byte boundary (mod 4): every lead is reached.
+    preds = _cascade_inputs(torch, rng, B, p, c)
     priors = prior_boxes(cfg, dev)
+    err, _ = _check_cascade(torch, preds, priors, cfg, f"B={B} P={p} C={c}")
+    # Ragged: the last tile partial; C=2 is even; the logits start 0-3 floats
+    # off a 16-byte boundary.
+    rpri = torch.tensor(rng.uniform(0.05, 0.95, (1000, 4)).astype(np.float32), device=dev)
+    for rc in (21, 2):
+        for lead in range(4):
+            _check_cascade(torch, _cascade_inputs(torch, rng, 3, 1000, rc, lead), rpri, cfg,
+                           f"B=3 P=1000 C={rc} lead={lead}")
+    # A NaN logit makes its anchor's scores NaN, and its per-anchor max NaN
+    # as amax gives it.
+    nan_preds = _cascade_inputs(torch, rng, 3, 1000, 21, 1)
+    nan_preds.odm_conf[:, ::37, 5] = float("nan")
+    _, n_nan = _check_cascade(torch, nan_preds, rpri, cfg, "B=3 P=1000 C=21 with NaN logits")
+    check(n_nan > 0, "K1 with NaN logits: no per-anchor NaN (every NaN anchor filtered?)")
+    log(f"  K1 holds at B={B} P={p} C={c} and at B=3 P=1000 C=21 and C=2, leads 0-3, and with "
+        f"NaN logits ({n_nan} NaN anchors); per-anchor max bit-equal to scores_cm.amax(1)")
     plain = lambda: cascade_plain(*preds, priors, *cfg.variance, cfg.arm_filter_thresh)
     kern = lambda: fused_refine_cascade(preds, priors, cfg)
-    (kb, ks), (pb, ps) = kern(), plain()
-    torch.cuda.synchronize()
-    err = max((kb - pb).abs().max().item(), (ks - ps).abs().max().item())
-    check(torch.allclose(kb, pb, atol=K1_ATOL, rtol=K1_RTOL), f"K1 boxes differ ({err})")
-    check(torch.allclose(ks, ps, atol=K1_ATOL, rtol=K1_RTOL), f"K1 scores differ ({err})")
-    ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
+    top = torch.empty((B, p), device=dev)
+    times = time_spread(torch, kern)
+    plain_ms = time_ms(torch, plain)
+    ms_per_anchor = time_ms(torch, lambda: fused_refine_cascade(preds, priors, cfg, top))
+    scores_cm = kern()[1]
+    amax_ms = time_ms(torch, lambda: scores_cm.amax(dim=1))
+    log(f"  K1 flushed {times['ms']:.4f} ms, warm {times['ms_warm']:.4f} ms, flushed repeats "
+        f"{', '.join(f'{t:.4f}' for t in times['ms_repeats'])} ms; with the per-anchor max "
+        f"{ms_per_anchor:.4f} ms; the amax pass it replaces {amax_ms:.4f} ms")
     nbytes = 4 * (B * p * (4 + 2 + 4 + c) + p * 4 + B * p * 4 + B * c * p)
     ops = B * p * (6 * c + 40)  # softmax ~6 flops a class, decode + ARM filter ~40
     bms, by = bound(nbytes, ops, PEAK_FP32)
     return dict(name="cascade", wrapper="fused_refine_cascade", source="tdrn_tpu_torch/csrc/cascade.cu",
                 replaces="tdrn_tpu/ops/cascade_pallas.py:73", max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by, ms_per_anchor=ms_per_anchor,
+                amax_ms=amax_ms, **times)
 
 
 def _nms_rows(rng, n, k):
@@ -194,6 +283,24 @@ def _nms_rows(rng, n, k):
     return boxes.astype(np.float32), np.ascontiguousarray(scores, dtype=np.float32)
 
 
+def _sparse_rows(scores, k):
+    """Every fourth row all empty; others whose positive scores end at 16 (or
+    k // 2), some with zeros inside as well."""
+    scores[1::4] = 0.0
+    scores[2::4, min(16, k):] = 0.0
+    scores[3::4, 1::7] = 0.0
+    scores[3::4, max(1, k // 2):] = 0.0
+    return scores
+
+
+def _suppress_plain_rows(torch, boxes, scores, thresh, rows=64):
+    """suppress_plain a block of rows at a time (its K x K temporaries)."""
+    from tdrn_tpu_torch.ops.nms_suppress import suppress_plain
+
+    return torch.cat([suppress_plain(boxes[i:i + rows], scores[i:i + rows], thresh)
+                      for i in range(0, scores.shape[0], rows)])
+
+
 def phase_nms(torch, rng):
     from tdrn_tpu_torch.config import VID_320
     from tdrn_tpu_torch.ops.nms_suppress import suppress_plain, suppress_sorted
@@ -209,17 +316,45 @@ def phase_nms(torch, rng):
     check(torch.equal(got.cpu() > 0, ref_cpu > 0), "K2 keep mask differs from the CPU plain version")
     err = (got - ref).abs().max().item()
     log(f"  K2 rows=2048 kept={int((got > 0).sum())} of {int((scores > 0).sum())} candidates")
-    # Timed at the main path's shape: one row per (frame, class).
+    # Both specialisations (warp a row up to K=256, block a row above), one
+    # row and a step's 496, thresholds 0 and 0.45, sparse rows among full ones.
     n = B * VID_320.num_classes
+    t0 = time.perf_counter()
+    for rk in (1, 63, 64, 65, 200, 256, 1024):
+        for rn in (1, n):
+            bx, sc = _nms_rows(rng, rn, rk)
+            if rn > 1:
+                sc = _sparse_rows(sc, rk)
+            bg, sg = torch.tensor(bx, device="cuda"), torch.tensor(sc, device="cuda")
+            for th in (0.0, thresh):
+                g = suppress_sorted(bg, sg, th)
+                want = _suppress_plain_rows(torch, bg, sg, th)
+                want_cpu = _suppress_plain_rows(torch, torch.tensor(bx), torch.tensor(sc), th)
+                torch.cuda.synchronize()
+                check(torch.equal(g, want), f"K2 N={rn} K={rk} thresh={th}: differs from the plain version")
+                check(torch.equal(g.cpu(), want_cpu), f"K2 N={rn} K={rk} thresh={th}: differs from the CPU")
+    log(f"  K2 bit-equal to the plain version on the card and on the CPU at K in 1, 63, 64, 65, "
+        f"200, 256, 1024, N in 1, {n}, thresholds 0 and {thresh} ({time.perf_counter() - t0:.1f} s)")
+    # Timed at the main path's shape: one row per (frame, class).
     tb, ts = boxes[:n].contiguous(), scores[:n].contiguous()
-    ms = time_ms(torch, lambda: suppress_sorted(tb, ts, thresh))
+    times = time_spread(torch, lambda: suppress_sorted(tb, ts, thresh))
     plain_ms = time_ms(torch, lambda: suppress_plain(tb, ts, thresh))
+    early = ts.clone()
+    early[:, 16:] = 0.0  # positive scores end at 16 of 200
+    ms_early = time_ms(torch, lambda: suppress_sorted(tb, early, thresh))
+    bx, sc = _nms_rows(rng, n, 1024)
+    b1k, s1k = torch.tensor(bx, device="cuda"), torch.tensor(sc, device="cuda")
+    ms_k1024 = time_ms(torch, lambda: suppress_sorted(b1k, s1k, thresh))
+    log(f"  K2 flushed {times['ms']:.4f} ms, warm {times['ms_warm']:.4f} ms, flushed repeats "
+        f"{', '.join(f'{t:.4f}' for t in times['ms_repeats'])} ms; rows ending at 16 of 200 "
+        f"{ms_early:.4f} ms; {n} rows of K=1024 (block a row) {ms_k1024:.4f} ms")
     nbytes = n * k * (16 + 4 + 4)
     ops = n * (k * (k - 1) / 2 * 14 + 5 * k)  # ~14 flops an IoU pair
     bms, by = bound(nbytes, ops, PEAK_FP32)
     return dict(name="nms_suppress", wrapper="suppress_sorted", source="tdrn_tpu_torch/csrc/nms_suppress.cu",
                 replaces="tdrn_tpu/ops/nms_pallas.py:78", max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by, ms_early=ms_early,
+                ms_k1024=ms_k1024, **times)
 
 
 def _stage_inputs(torch, rng, b, h, w, cin, cmid, cout, x_scale):
@@ -685,7 +820,8 @@ def main() -> int:
         profile_step(torch, det, frames, "profile.txt")
         profile_step(torch, det16, frames16, "profile_bf16.txt")
 
-    extra = ("tflops", "cudnn_chain_ms", "ms_fp32_input", "ms_fp32_compute")
+    extra = ("tflops", "cudnn_chain_ms", "ms_fp32_input", "ms_fp32_compute", "ms_warm",
+             "ms_repeats", "ms_per_anchor", "amax_ms", "ms_early", "ms_k1024")
     kernels = [dict(name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"],
                     launches=launches[r["wrapper"]], max_abs_err=r["max_abs_err"],
                     ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

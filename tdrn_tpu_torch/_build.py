@@ -42,8 +42,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each kernel's entry point: (name, argtypes).
 _SIGNATURES = {
     # arm_loc, arm_conf, odm_loc, odm_conf, priors, boxes, scores_cm,
-    # B, P, C, v0, v1, arm_thresh, stream
-    "cascade": ("tdrn_cascade", [_P] * 7 + [_I, _I, _I, _F, _F, _F, _P]),
+    # per_anchor (or null), B, P, C, v0, v1, arm_thresh, stream
+    "cascade": ("tdrn_cascade", [_P] * 8 + [_I, _I, _I, _F, _F, _F, _P]),
     # boxes, scores, out, N, K, iou_thresh, stream
     "nms_suppress": ("tdrn_nms_suppress", [_P, _P, _P, _I, _I, _F, _P]),
     # x, k1, b1, k2, b2, out, B, H, W, Cin, Cmid, Cout, in_bf16, round_bf16,

@@ -7,7 +7,7 @@ tensor goes to the hand-written kernel (csrc/cascade.cu), a CPU tensor to
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -49,11 +49,16 @@ def cascade_plain(
     return boxes, scores.transpose(1, 2).contiguous()
 
 
-def fused_refine_cascade(preds, priors: Tensor, cfg) -> Tuple[Tensor, Tensor]:
+def fused_refine_cascade(
+    preds, priors: Tensor, cfg, per_anchor: Optional[Tensor] = None
+) -> Tuple[Tensor, Tensor]:
     """preds: RawPredictions (B, P, .) float32; priors (P, 4) center form.
 
     Returns (boxes (B, P, 4) xyxy, scores_cm (B, C, P)): softmax scores,
     ARM-filtered, background row zeroed, CLASS-MAJOR for the per-class NMS.
+    per_anchor, a (B, P) float32 buffer, receives each anchor's max over its
+    C scores, the prefilter's score: ``scores_cm.amax(dim=1)`` bit for bit,
+    which the kernel takes as it stores the scores.
     """
     b, p, _ = preds.arm_loc.shape
     c = preds.odm_conf.shape[-1]
@@ -62,11 +67,18 @@ def fused_refine_cascade(preds, priors: Tensor, cfg) -> Tuple[Tensor, Tensor]:
     _build.require(preds.odm_loc, "odm_loc", (b, p, 4))
     _build.require(preds.odm_conf, "odm_conf", (b, p, c))
     _build.require(priors, "priors", (p, 4))
+    outs = ()
+    if per_anchor is not None:
+        _build.require(per_anchor, "per_anchor", (b, p))
+        outs = (per_anchor,)
     v0, v1 = float(cfg.variance[0]), float(cfg.variance[1])
     thresh = float(cfg.arm_filter_thresh)
     args = (preds.arm_loc, preds.arm_conf, preds.odm_loc, preds.odm_conf, priors)
-    if _build.route(*args) == "cpu":
-        return cascade_plain(*args, v0, v1, thresh)
+    if _build.route(*args, *outs) == "cpu":
+        boxes, scores_cm = cascade_plain(*args, v0, v1, thresh)
+        if per_anchor is not None:
+            torch.amax(scores_cm, dim=1, out=per_anchor)
+        return boxes, scores_cm
     # The kernel reads boxes and priors as float4.
     if any(t.data_ptr() % 16 for t in (preds.arm_loc, preds.odm_loc, priors)):
         raise ValueError("arm_loc, odm_loc and priors must be 16-byte aligned")
@@ -75,6 +87,7 @@ def fused_refine_cascade(preds, priors: Tensor, cfg) -> Tuple[Tensor, Tensor]:
     with torch.cuda.device(priors.device):
         err = _build.entry("cascade")(
             *(t.data_ptr() for t in args), boxes.data_ptr(), scores_cm.data_ptr(),
+            None if per_anchor is None else per_anchor.data_ptr(),
             b, p, c, v0, v1, thresh, _build.stream_of(priors),
         )
     _build.check("cascade", err)

@@ -77,11 +77,13 @@ def _detect(
     anchor when the prefilter is on (else None)."""
     per_anchor = None
     if cfg.fused_cascade:
-        boxes, scores_cm = fused_refine_cascade(preds, priors, cfg)
-        if _prefilter_on(cfg, boxes.shape[1]):
-            # Class-major: max over class rows (row 0 is zero), gather anchors
-            # on the last axis, no transpose.
-            per_anchor = scores_cm.amax(dim=1)  # (B, P)
+        if _prefilter_on(cfg, preds.arm_loc.shape[1]):
+            per_anchor = preds.odm_conf.new_empty(preds.odm_conf.shape[:2])  # (B, P)
+        # K1 writes each anchor's max over class rows (row 0 is zero) into
+        # per_anchor as it stores them.
+        boxes, scores_cm = fused_refine_cascade(preds, priors, cfg, per_anchor)
+        if per_anchor is not None:
+            # Gather anchors on the last axis, no transpose.
             idx = _prefilter_select(per_anchor, cfg)
             boxes = torch.gather(boxes, 1, idx[..., None].expand(*idx.shape, 4))
             scores_cm = torch.gather(

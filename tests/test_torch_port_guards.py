@@ -142,16 +142,23 @@ def _preds(p=255, c=4, b=1):
 def test_cascade_wrapper_rejects_bad_input():
     priors = torch.full((255, 4), 0.5)
     fused_refine_cascade(_preds(), priors, TINY_64)
+    fused_refine_cascade(_preds(), priors, TINY_64, torch.empty(1, 255))
     bad = [
-        (_preds()._replace(odm_conf=torch.zeros(1, 255, 4, dtype=torch.float64)), priors),
-        (_preds()._replace(arm_loc=torch.zeros(1, 4, 255).transpose(1, 2)), priors),
-        (_preds()._replace(arm_conf=torch.zeros(1, 255, 3)), priors),
-        (_preds(), priors[:100]),
-        (_preds()._replace(arm_loc=torch.zeros(1, 255, 4, device="meta")), priors),
+        (_preds()._replace(odm_conf=torch.zeros(1, 255, 4, dtype=torch.float64)), priors, None),
+        (_preds()._replace(arm_loc=torch.zeros(1, 4, 255).transpose(1, 2)), priors, None),
+        (_preds()._replace(arm_conf=torch.zeros(1, 255, 3)), priors, None),
+        (_preds(), priors[:100], None),
+        (_preds()._replace(arm_loc=torch.zeros(1, 255, 4, device="meta")), priors, None),
+        # the per-anchor buffer: shape, dtype, layout, device
+        (_preds(), priors, torch.empty(1, 254)),
+        (_preds(), priors, torch.empty(255)),
+        (_preds(), priors, torch.empty(1, 255, dtype=torch.float64)),
+        (_preds(), priors, torch.empty(1, 510)[:, ::2]),
+        (_preds(), priors, torch.empty(1, 255, device="meta")),
     ]
-    for preds, pri in bad:
+    for preds, pri, top in bad:
         with pytest.raises((TypeError, ValueError)):
-            fused_refine_cascade(preds, pri, TINY_64)
+            fused_refine_cascade(preds, pri, TINY_64, top)
 
 
 def test_nms_wrapper_rejects_bad_input():

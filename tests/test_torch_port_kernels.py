@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from tdrn_tpu import config as jcfg
+from tdrn_tpu.ops import boxes as JB
 from tdrn_tpu.ops import nms as JN
 from tdrn_tpu.ops import nms_pallas as JNP
 from tdrn_tpu.ops.cascade_pallas import fused_refine_cascade as j_cascade
@@ -21,6 +22,7 @@ from tdrn_tpu_torch import config as tcfg
 from tdrn_tpu_torch.ops import nms as TN
 from tdrn_tpu_torch.ops.cascade import fused_refine_cascade
 from tdrn_tpu_torch.ops.detection import RawPredictions
+from tdrn_tpu_torch.ops.nms_suppress import suppress_sorted
 from tdrn_tpu_torch.ops.stem import fused_stem_stage1
 from tests.test_geometry import random_boxes
 
@@ -57,6 +59,31 @@ def test_cascade_plain_matches_jax(name):
     np.testing.assert_allclose(scores_cm.numpy(), ref_cm, atol=1e-5, rtol=1e-4)
 
 
+def test_cascade_per_anchor_is_the_class_max():
+    """The prefilter's per-anchor score: the max of the C stored scores,
+    background row included, bit for bit, and JAX's max over its kernel's
+    class rows (tdrn_tpu/ops/detection.py) at the K1 tolerance."""
+    cfg, jc = tcfg.TINY_64, jcfg.TINY_64
+    p, c = cfg.num_priors, cfg.num_classes
+    rng = np.random.default_rng(1)
+    raw = [
+        (rng.normal(size=(3, p, 4)) * 0.5).astype("f4"),
+        (rng.normal(size=(3, p, 2)) * 2).astype("f4"),
+        (rng.normal(size=(3, p, 4)) * 0.5).astype("f4"),
+        (rng.normal(size=(3, p, c)) * 2).astype("f4"),
+    ]
+    priors = j_priors(jc)
+    preds = RawPredictions(*map(T, raw))
+    boxes, scores_cm = fused_refine_cascade(preds, torch.tensor(priors), cfg)
+    top = torch.full((3, p), -1.0)
+    b2, s2 = fused_refine_cascade(preds, torch.tensor(priors), cfg, per_anchor=top)
+    assert torch.equal(b2, boxes) and torch.equal(s2, scores_cm)
+    assert torch.equal(top, scores_cm.amax(dim=1))
+    assert bool((top == 0).any()) and bool((top > 0).any())  # ARM-filtered anchors too
+    _, ks = j_cascade(JRaw(*map(jnp.asarray, raw)), jnp.asarray(priors), jc, interpret=True)
+    np.testing.assert_allclose(top.numpy(), np.asarray(jnp.max(ks, axis=1)), atol=1e-5, rtol=1e-4)
+
+
 # --- K2 ---------------------------------------------------------------------
 
 
@@ -77,6 +104,10 @@ def _nms_case(case, seed):
         boxes[1::7, 3] = boxes[1::7, 1] - 0.05
         boxes[2::11] = boxes[2::11, :1]
         return boxes, rng.uniform(0, 1, 120).astype("f4"), 80, 0.0
+    if case == "sparse":  # 16 positive scores: the sorted row ends in 184 empty slots
+        scores = np.zeros(300, "f4")
+        scores[rng.choice(300, 16, replace=False)] = rng.uniform(0.1, 1, 16)
+        return random_boxes(rng, 300), scores, 200, 0.0
     if case == "few":  # fewer candidates than top_k, duplicates included
         boxes = random_boxes(rng, 12)
         boxes[5] = boxes[4]
@@ -85,7 +116,7 @@ def _nms_case(case, seed):
 
 
 CASES = [("random", 0), ("random", 1), ("random", 2), ("padding", 0),
-         ("ties", 3), ("degenerate", 4), ("few", 5)]
+         ("ties", 3), ("degenerate", 4), ("few", 5), ("sparse", 6)]
 
 
 @pytest.mark.parametrize("case,seed", CASES)
@@ -101,6 +132,32 @@ def test_nms_fixed_matches_jax(case, seed):
         np.testing.assert_allclose(got.scores.numpy(), np.asarray(ref.scores), atol=1e-6)
         np.testing.assert_allclose(got.boxes.numpy(), np.asarray(ref.boxes), atol=1e-6)
     assert got.scores.shape == (top_k,) and got.boxes.shape == (top_k, 4)
+
+
+@pytest.mark.parametrize("k", [65, 200])
+@pytest.mark.parametrize("thresh", [0.0, 0.45])
+def test_suppress_sorted_matches_jax_on_sparse_rows(k, thresh):
+    """Score-sorted rows whose positive scores end early, with zeros inside
+    them, and an all-empty row (what the kernel's n_valid and empty-slot
+    skips see): the keep mask equals JAX's greedy fixpoint (nms.py) and its
+    Pallas sweep (interpret mode), exactly, at thresholds 0 and 0.45."""
+    rng = np.random.RandomState(k)
+    n = 4
+    boxes = np.stack([random_boxes(rng, k) for _ in range(n)])
+    scores = np.sort(rng.uniform(0.01, 1, (n, k)).astype("f4"), -1)[:, ::-1].copy()
+    scores[0, 16:] = 0.0  # ends early
+    scores[1, 3::7] = 0.0  # zeros inside the row
+    scores[2] = 0.0  # all empty
+    scores[3, k // 2:] = 0.0  # both
+    scores[3, 1:k // 2:5] = 0.0
+    got = suppress_sorted(T(boxes), T(scores), thresh).numpy()
+    jb, js = jnp.asarray(boxes), jnp.asarray(scores)
+    ref_pallas = np.asarray(JNP.suppress_sorted(jb, js, thresh, interpret=True))
+    for r in range(n):
+        keep = JN._greedy_keep_fixpoint(JB.iou(jb[r], jb[r]), js[r] > 0.0, thresh)
+        np.testing.assert_array_equal(got[r] > 0, np.asarray(keep))
+    np.testing.assert_array_equal(got, ref_pallas)
+    assert not got[2].any() and (got[0, 16:] == 0).all()
 
 
 @pytest.mark.parametrize("num_boxes,top_k", [(200, 60), (40, 100)])
