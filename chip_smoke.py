@@ -3,15 +3,18 @@
 
     python3 chip_smoke.py            # build, check every kernel, drive both paths
     python3 chip_smoke.py --profile  # also write torch.profiler breakdowns of three
-                                     # streaming steps (cuDNN TF32 on) of the fp32
-                                     # path to chiprun_out/profile.txt and of the
-                                     # bf16 serving path to chiprun_out/profile_bf16.txt
+                                     # graphed streaming steps (cuDNN TF32 on) of the
+                                     # fp32 path to chiprun_out/profile.txt and of the
+                                     # bf16 serving path to chiprun_out/profile_bf16.txt,
+                                     # and of three eager bf16 steps to
+                                     # chiprun_out/profile_bf16_eager.txt
 
 1. Prints the card (nvidia-smi name and power limit) and the torch / CUDA versions.
 2. Builds the four kernels from tdrn_tpu_torch/csrc/*.cu with nvcc for sm_90a,
    one nvcc per source, all at once, into build/tdrn_tpu_torch/.
 3. Holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (B=16, vid_320), and times both with CUDA events
+   main path's shapes (B=16, vid_320) and at a chunk-2 step's (B=32; K2 at
+   992 rows), and times both at B=16 with CUDA events
    (median of 30 launches after warm-up, L2 flushed by a read before each,
    then the card held busy for about 0.1 ms so the events time the card
    and not the host's launch).
@@ -32,24 +35,52 @@
    (cudnn_chain_ms); the port never calls that chain.
 4. Drives the fp32 path: StreamingDetector at full-width vid_320 (fused stem,
    fused cascade, fp32), random weights from a seeded numpy draw loaded
-   through weights.py, 4 streams x 8 steps of 480x640 uint8 frames with a
-   reset and an inactive lane. Checks shapes, finiteness, that each kernel
-   launched once per step, the reset lane against a fresh run, and one frame
-   against the plain versions on the CPU (its raw predictions' error logged).
+   through weights.py, 4 streams x 6 steps of 480x640 uint8 frames with a
+   reset and an inactive lane. On the card every detect() replays the
+   step's CUDA graph, so a wrapper's launch counter counts only where the
+   step runs eagerly: in its warm-up and its capture. Checks shapes,
+   finiteness, each kernel launched once in the warm-up step before each
+   capture and once in the capture, one replay a step, the graphed detect() against the eager step
+   (StreamingDetector._step called directly on clones of the same state,
+   frames and masks: bit-equal expected, scores, boxes and state held at
+   1e-5; which one held is logged), the reset lane against a fresh run, and
+   one frame against the plain versions on the CPU (its raw predictions'
+   error logged).
 5. Drives the serving path: the resident-bf16 profile (fused2 stem, fused
    cascade, apply_inference_precision "bf16", prefilter 512) behind
-   InferenceServer, 16 client threads each submitting 8 320x320 frames of
-   its own stream, one stream reset partway. Checks that K1-K4 each launched
-   once per server step, each stream's detections against the same frames
-   through a plain StreamingDetector with only that lane active (scores
-   within 1e-5), finiteness, the bf16 carry, and one frame's raw predictions
-   against the port's CPU plain path in bf16 (5e-2 of max|ref|).
-6. Times, before any profiling (a profiler session leaves host overhead
-   behind): the fp32 step and the bf16 step at 16 streams (host clock,
-   median of 20 steps, each ending in a synchronize, with the host's time
-   of the detect() call alone beside it), and frames/s through the server
-   with 16 concurrent clients, with its p50/p99 request latency.
-7. Prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+   InferenceServer, whose warm-up step captures the graph, 16 client threads
+   each submitting 8 320x320 frames of its own stream, one stream reset
+   partway. Checks the launch counts as above, one replay a server step,
+   each stream's detections against the same frames through a second
+   detector with only that lane active (scores within 1e-5), the graphed
+   step against the eager one over 4 steps of all lanes with a reset and
+   an inactive lane (the bf16 state must be equal), finiteness, the bf16
+   carry, and one frame's raw predictions against the port's CPU plain path
+   in bf16 (5e-2 of max|ref|).
+6. Drives both profiles at chunk=2 (16 streams x 4 frames of 320x320 in two
+   steps, a reset at the chunk boundary) against four chunk-1 steps: launch
+   counts; the carried state within 1e-5 (fp32) or 5e-2 of max|ref| (bf16);
+   the sorted scores within 1e-3 (fp32) or 5e-2 (bf16) of max|ref|; at
+   least 95 % of each frame's detections matched (same class, score within
+   the same share of max|ref|, box within 1e-4 or 1e-2), since at batch 32
+   the convolutions sum in another order than at 16 and a last-bit change
+   can flip an NMS or top-k decision; and, so that the rule can fail, at
+   most 95 % of a frame's detections matched by the other frame of its
+   chunk. The raw predictions of one batch-32 forward against two of 16 are
+   logged.
+7. Times, before any profiling (a profiler session leaves host overhead
+   behind): the fp32 step and the bf16 step at 16 streams, graphed, with the
+   eager step (the frames copied from pageable memory, then _step, as
+   detect() ran before the graph) beside each (host clock, median of 20
+   steps, each ending in a synchronize, with the host's time of the call
+   alone beside it); the bf16 step at chunk 2; and frames/s through the
+   server with 16 concurrent clients, with its p50/p99 request latency, for
+   the bf16 serving path and for the fp32 model at 320x320.
+8. Under torch.profiler from a detector's construction on (warm-up, capture
+   and three replays), for both paths at chunk 1 and at chunk 2: each
+   kernel's device events by name, which must show it once in the warm-up
+   and once in every replayed step.
+9. Prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises; there is no fallback to the CPU. It imports nothing
 of JAX or of the JAX package tdrn_tpu. TF32 is off for every check, so the
@@ -84,6 +115,16 @@ K3_FP32_REL_TOL = 1e-4  # the same for fp32 compute: fp32 sums in another order
 K4_REL_TOL = 1e-3  # the same bound for K4 (tests/test_torch_port_stage.py)
 SERVE_SCORE_ATOL = 1e-5  # server against sequential detector (tests/test_serving.py)
 BF16_REL_TOL = 5e-2  # bf16 raw predictions, card against CPU (tests/test_precision.py)
+GRAPH_ATOL = 1e-5  # graphed detect() against the eager step: scores, boxes, fp32 state
+# chunk 2 against chunk 1: the fp32 state (tests/test_chunk_streaming.py),
+# and the share of detections that match (tests/test_torch_port_serving.py).
+CHUNK_STATE_ATOL = 1e-5
+CHUNK_MATCH_SHARE = 0.95
+# By profile: the sorted scores' max|diff|, and a matched detection's score
+# difference, as a share of the frame's max score (PR 5's readings on the
+# H100: fp32 2.49e-4, bf16 1.15e-2); a matched box's max|diff|.
+CHUNK_SCORE_REL = {"fp32": 1e-3, "bf16": 5e-2}
+CHUNK_BOX_ATOL = {"fp32": 1e-4, "bf16": 1e-2}
 STREAMS = 16  # serving lanes and concurrent clients
 
 
@@ -229,6 +270,9 @@ def phase_cascade(torch, rng):
     preds = _cascade_inputs(torch, rng, B, p, c)
     priors = prior_boxes(cfg, dev)
     err, _ = _check_cascade(torch, preds, priors, cfg, f"B={B} P={p} C={c}")
+    # A chunk-2 step's batch.
+    err = max(err, _check_cascade(torch, _cascade_inputs(torch, rng, 2 * B, p, c), priors, cfg,
+                                  f"B={2 * B} P={p} C={c}")[0])
     # Ragged: the last tile partial; C=2 is even; the logits start 0-3 floats
     # off a 16-byte boundary.
     rpri = torch.tensor(rng.uniform(0.05, 0.95, (1000, 4)).astype(np.float32), device=dev)
@@ -242,7 +286,7 @@ def phase_cascade(torch, rng):
     nan_preds.odm_conf[:, ::37, 5] = float("nan")
     _, n_nan = _check_cascade(torch, nan_preds, rpri, cfg, "B=3 P=1000 C=21 with NaN logits")
     check(n_nan > 0, "K1 with NaN logits: no per-anchor NaN (every NaN anchor filtered?)")
-    log(f"  K1 holds at B={B} P={p} C={c} and at B=3 P=1000 C=21 and C=2, leads 0-3, and with "
+    log(f"  K1 holds at B={B} and {2 * B}, P={p} C={c}, and at B=3 P=1000 C=21 and C=2, leads 0-3, and with "
         f"NaN logits ({n_nan} NaN anchors); per-anchor max bit-equal to scores_cm.amax(1)")
     plain = lambda: cascade_plain(*preds, priors, *cfg.variance, cfg.arm_filter_thresh)
     kern = lambda: fused_refine_cascade(preds, priors, cfg)
@@ -317,11 +361,12 @@ def phase_nms(torch, rng):
     err = (got - ref).abs().max().item()
     log(f"  K2 rows=2048 kept={int((got > 0).sum())} of {int((scores > 0).sum())} candidates")
     # Both specialisations (warp a row up to K=256, block a row above), one
-    # row and a step's 496, thresholds 0 and 0.45, sparse rows among full ones.
+    # row and a step's 496 (at the path's K, also a chunk-2 step's 992),
+    # thresholds 0 and 0.45, sparse rows among full ones.
     n = B * VID_320.num_classes
     t0 = time.perf_counter()
     for rk in (1, 63, 64, 65, 200, 256, 1024):
-        for rn in (1, n):
+        for rn in ((1, n, 2 * n) if rk == k else (1, n)):
             bx, sc = _nms_rows(rng, rn, rk)
             if rn > 1:
                 sc = _sparse_rows(sc, rk)
@@ -334,7 +379,8 @@ def phase_nms(torch, rng):
                 check(torch.equal(g, want), f"K2 N={rn} K={rk} thresh={th}: differs from the plain version")
                 check(torch.equal(g.cpu(), want_cpu), f"K2 N={rn} K={rk} thresh={th}: differs from the CPU")
     log(f"  K2 bit-equal to the plain version on the card and on the CPU at K in 1, 63, 64, 65, "
-        f"200, 256, 1024, N in 1, {n}, thresholds 0 and {thresh} ({time.perf_counter() - t0:.1f} s)")
+        f"200, 256, 1024, N in 1, {n} (and {2 * n} at K={k}), thresholds 0 and {thresh} "
+        f"({time.perf_counter() - t0:.1f} s)")
     # Timed at the main path's shape: one row per (frame, class).
     tb, ts = boxes[:n].contiguous(), scores[:n].contiguous()
     times = time_spread(torch, lambda: suppress_sorted(tb, ts, thresh))
@@ -430,6 +476,12 @@ def phase_stem(torch, rng):
     # fp32 compute: the CUDA-core kernel, against fp32 convs (TF32 off).
     fp32_route = lambda: fused_stem_stage1(*a32, compute_dtype=f32)
     _rel_err(torch, fp32_route(), stem_plain(*a32, f32, f32), "K3 fp32 compute", K3_FP32_REL_TOL)
+    # A chunk-2 step's batch, on fp32 input (the fp32 path) and bf16 (serving).
+    big = _stage_inputs(torch, rng, 2 * B, h, w, cin, n, n, pixels)
+    for name, a in (("fp32", big), ("bf16", _bf16(big))):
+        err = max(err, _rel_err(torch, fused_stem_stage1(*a, out_dtype=f32), stem_plain(*a, b16, f32),
+                                f"K3 B={2 * B} {name} input", K3_REL_TOL))
+    del big
 
     kern = lambda: fused_stem_stage1(*a16)  # bf16 in and out, as served
     plain = lambda: stem_plain(*a16, b16, b16)
@@ -463,6 +515,11 @@ def phase_conv_stage(torch, rng):
     for name, a in (("fp32", a32), ("bf16", a16)):
         err = max(err, _rel_err(torch, fused_conv_stage(*a, out_dtype=f32),
                                 stem_plain(*a, b16, f32), f"K4 {name} input", K4_REL_TOL))
+    big = _stage_inputs(torch, rng, 2 * B, h, w, cin, cmid, cout, post_relu)  # a chunk-2 step
+    for name, a in (("fp32", big), ("bf16", _bf16(big))):
+        err = max(err, _rel_err(torch, fused_conv_stage(*a, out_dtype=f32), stem_plain(*a, b16, f32),
+                                f"K4 B={2 * B} {name} input", K4_REL_TOL))
+    del big
     rag = _bf16(_stage_inputs(torch, rng, *RAGGED, cin, cmid, cout, post_relu))
     _rel_err(torch, fused_conv_stage(*rag, out_dtype=f32), stem_plain(*rag, b16, f32),
              f"K4 ragged {RAGGED}", K4_REL_TOL)
@@ -488,7 +545,9 @@ def phase_conv_stage(torch, rng):
 
 def random_params(model, seed):
     """A seeded numpy draw in the JAX layout, loaded through weights.py:
-    xavier-uniform kernels, small normal biases, the L2Norm scales as built."""
+    xavier-uniform kernels, small normal biases, the L2Norm scales as built.
+    The same draw as weights.load_random_params, kept here because
+    chip_compare.py runs these helpers on checkouts that predate it."""
     from tdrn_tpu_torch import weights
 
     rng = np.random.default_rng(seed)
@@ -509,6 +568,83 @@ def random_params(model, seed):
     return weights.load_jax_params(model, tree)
 
 
+# Device kernel names of each wrapper's kernels, as torch.profiler reports them.
+KERNEL_NAMES = {
+    "fused_refine_cascade": ("cascade_kernel",),
+    "suppress_sorted": ("nms_rows_kernel", "nms_block_kernel"),
+    "fused_stem_stage1": ("stem_tc_kernel", "stem_kernel"),
+    "fused_conv_stage": ("conv_stage_kernel",),
+}
+
+
+def read_launches(counters, det, what):
+    """The wrappers' counts since they were set to 0. A wrapper counts where it
+    launches its kernel, which on the card happens in the eager warm-up step
+    before each capture and in the capture; a replay calls no wrapper. So
+    each kernel of the path must count twice a capture."""
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"  {what}: launches {launches}; {det.captures} captures (each after one warm-up "
+        f"step), {det.replays} replays")
+    check(det.captures >= 1, f"{what}: no capture")
+    for name, n in launches.items():
+        check(n == 2 * det.captures, f"{what}: {name} launched {n} times, expected once in "
+                                     f"each warm-up and once in each capture ({2 * det.captures})")
+    return launches
+
+
+def run_graphed(torch, det, frames, reset, inactive):
+    """Steps through detect() (graph replays). reset = (step, lane) queues a
+    reset before that step; inactive = (step, lane) masks that lane out of it,
+    the mask given as a tensor on the card. Returns the detections and a
+    snapshot of the state after each step."""
+    outs, states = [], []
+    for i in range(frames.shape[0]):
+        if i == reset[0]:
+            det.reset([reset[1]])
+        active = torch.from_numpy(step_active(det, i, inactive)).to(det.device)  # on the card
+        outs.append(det.detect(frames[i], active=active))
+        states.append([s.clone() for s in det.state])
+    return outs, states
+
+
+def step_active(det, i, inactive):
+    active = np.ones((det.num_streams,), np.float32)
+    if i == inactive[0]:
+        active[inactive[1]] = 0.0
+    return active
+
+
+def graphed_vs_eager(torch, det, frames, outs, states, state0, reset, inactive, what):
+    """The eager step (StreamingDetector._step, called directly) on clones of
+    the same state and the same frames, masks and resets, against the
+    graphed detect(): bit-equal expected; the detections' scores and boxes
+    held at 1e-5 and the state at 1e-5 (a bf16 state: equal)."""
+    dev = det.device
+    state = [s.clone() for s in state0]
+    bit_equal, score_err, box_err, state_err = True, 0.0, 0.0, 0.0
+    for i in range(frames.shape[0]):
+        r = torch.zeros(det.num_streams, device=dev)
+        if i == reset[0]:
+            r[reset[1]] = 1.0
+        a = torch.tensor(step_active(det, i, inactive), device=dev)
+        state, ref = det._step(state, torch.from_numpy(frames[i]).to(dev), r, a)
+        got = outs[i]
+        bit_equal &= all(torch.equal(x, y) for x, y in zip(got, ref) if x is not None)
+        bit_equal &= all(torch.equal(x, y) for x, y in zip(states[i], state))
+        score_err = max(score_err, (got.scores - ref.scores).abs().max().item())
+        box_err = max(box_err, (got.boxes - ref.boxes).abs().max().item())
+        state_err = max(state_err, max((x.float() - y.float()).abs().max().item()
+                                       for x, y in zip(states[i], state)))
+    bf16 = state[0].dtype == torch.bfloat16
+    held = "bit-equal" if bit_equal else "within tolerance, not bit-equal"
+    log(f"  {what}: graphed detect() vs eager _step over {frames.shape[0]} steps: {held}; "
+        f"max|score diff| {score_err:.3g}, max|box diff| {box_err:.3g}, max|state diff| "
+        f"{state_err:.3g} ({'bf16 state: must be equal' if bf16 else 'bound 1e-5'})")
+    check(score_err <= GRAPH_ATOL and box_err <= GRAPH_ATOL, f"{what}: graphed detections differ")
+    check(state_err == 0.0 if bf16 else state_err <= GRAPH_ATOL, f"{what}: graphed state differs")
+    return held
+
+
 def main_path(torch, counters):
     from tdrn_tpu_torch.config import VID_320
     from tdrn_tpu_torch.inference import StreamingDetector, make_single_image_forward
@@ -516,24 +652,18 @@ def main_path(torch, counters):
 
     cfg = dataclasses.replace(VID_320, fused_cascade=True)
     model = random_params(build_detector(cfg, stem="fused"), SEED)
-    s, steps, reset_at, inactive_at = 4, 8, 4, 6
+    s, steps, reset, inactive = 4, 6, (3, 1), (4, 2)
     rng = np.random.default_rng(SEED + 1)
     frames = rng.integers(0, 256, (steps, s, 480, 640, 3), dtype=np.uint8)
-    active = lambda i: np.array([1, 1, 0 if i == inactive_at else 1, 1], np.float32)
 
-    det = StreamingDetector(model, num_streams=s)
     for c in counters:
         c.launches = 0
-    outs = []
-    for i in range(steps):
-        if i == reset_at:
-            det.reset([1])
-        outs.append(det.detect(frames[i], active=active(i)))
+    det = StreamingDetector(model, num_streams=s)
+    state0 = [t.clone() for t in det.state]
+    outs, states = run_graphed(torch, det, frames, reset, inactive)
     torch.cuda.synchronize()
-    launches = {c.__name__: c.launches for c in counters}
-    log(f"  main path launches over {steps} steps: {launches}")
-    for name, n in launches.items():
-        check(n == steps, f"{name} launched {n} times in {steps} steps")
+    launches = read_launches(counters, det, f"fp32 path, {steps} steps")
+    check(det.replays == steps, f"{det.replays} replays in {steps} steps")
     for o in outs:
         check(o.boxes.shape == (s, cfg.top_k, 4) and o.scores.shape == (s, cfg.top_k)
               and o.classes.shape == (s, cfg.top_k) and o.classes.dtype == torch.int32,
@@ -544,10 +674,11 @@ def main_path(torch, counters):
     n_kept = int((outs[-1].scores > 0).sum())
     log(f"  last step: {n_kept} detections kept over {s} streams, "
         f"top score {outs[-1].scores.max().item():.4f}")
+    held = graphed_vs_eager(torch, det, frames, outs, states, state0, reset, inactive, "fp32 path")
 
     fresh = StreamingDetector(model, num_streams=s)
-    for i in range(reset_at, steps):
-        fresh.detect(frames[i], active=active(i))
+    for i in range(reset[0], steps):
+        fresh.detect(frames[i], active=step_active(fresh, i, inactive))
     diff = max((a[1] - b[1]).abs().max().item() for a, b in zip(det.state, fresh.state))
     log(f"  reset lane vs fresh run: max|diff| = {diff:.3g}")
     check(diff <= 1e-5, f"reset lane state differs from a fresh run by {diff}")
@@ -566,7 +697,7 @@ def main_path(torch, counters):
         f"raw predictions max rel err {raw_rel_err(torch, model, cpu_model, img):.3g} of max|ref|")
     check(score_err < 1e-3 and same.float().mean().item() > 0.9 and box_err < 1e-4,
           "GPU main path disagrees with the CPU plain path")
-    return model, launches
+    return model, launches, held
 
 
 def raw_rel_err(torch, model, cpu_model, img):
@@ -583,12 +714,16 @@ def raw_rel_err(torch, model, cpu_model, img):
     return max(((a.cpu() - b).abs().max() / b.abs().max()).item() for a, b in zip(g, r))
 
 
-def time_streaming(torch, model, streams=16, steps=20, hw=(480, 640), prefilter=None):
+def time_streaming(torch, model, streams=16, steps=20, hw=(480, 640), prefilter=None, chunk=1):
+    """Median step time (host clock, each step ending in a synchronize) and
+    median host time of the detect() call alone, over `steps` steps after 3
+    warm-up steps. With chunk > 1 a step takes chunk frames a stream."""
     from tdrn_tpu_torch.inference import StreamingDetector
 
     rng = np.random.default_rng(SEED + 2)
-    frames = torch.tensor(rng.integers(0, 256, (streams, *hw, 3), dtype=np.uint8))
-    det = StreamingDetector(model, num_streams=streams, prefilter=prefilter)
+    lead = (streams,) if chunk == 1 else (chunk, streams)
+    frames = torch.tensor(rng.integers(0, 256, (*lead, *hw, 3), dtype=np.uint8))
+    det = StreamingDetector(model, num_streams=streams, prefilter=prefilter, chunk=chunk)
     for _ in range(3):
         det.detect(frames)
     torch.cuda.synchronize()
@@ -602,8 +737,40 @@ def time_streaming(torch, model, streams=16, steps=20, hw=(480, 640), prefilter=
     return det, frames, statistics.median(times) * 1e3, statistics.median(host) * 1e3
 
 
-def profile_step(torch, det, frames, out_name, steps=3):
-    """Device time by kernel over a few streaming steps, busy and idle share.
+def eager_step(torch, det, frames):
+    """A callable that runs one eager step as detect() ran before the graph:
+    the frames copied to the card from pageable memory, then
+    StreamingDetector._step on a state chain of its own."""
+    dev = det.device
+    state = [[s.clone() for s in det.state]]
+    reset = torch.zeros(det.num_streams, device=dev)
+    active = torch.ones(det.num_streams, device=dev)
+
+    def step():
+        state[0], out = det._step(state[0], frames.to(dev), reset, active)
+        return out
+
+    return step
+
+
+def time_eager(torch, det, frames, steps=20):
+    """time_streaming's medians for the eager step."""
+    step = eager_step(torch, det, frames)
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    times, host = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        step()
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3, statistics.median(host) * 1e3
+
+
+def profile_step(torch, step, out_name, steps=3):
+    """Device time by kernel over a few calls of step(), busy and idle share.
 
     Sums the kernel-level (device) events only, so an aten op and the kernels
     it launches are not counted twice."""
@@ -613,7 +780,7 @@ def profile_step(torch, det, frames, out_name, steps=3):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            det.detect(frames)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     rows = [(e.self_device_time_total / 1e3 / steps, e.count // steps, e.key)
@@ -621,13 +788,45 @@ def profile_step(torch, det, frames, out_name, steps=3):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     lines = [f"profiled {steps} steps: wall {wall_ms:.3f} ms/step, device busy "
-             f"{busy:.3f} ms/step, idle share {1 - busy / wall_ms:.3f}",
+             f"{busy:.3f} ms/step, idle share {1 - busy / wall_ms:.3f}, "
+             f"{sum(r[1] for r in rows)} device kernels and copies a step",
              "ms/step  share  launches/step  kernel"]
     lines += [f"{ms:8.4f} {ms / busy:6.3f} {n:6d}  {key[:110]}" for ms, n, key in rows]
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", out_name), "w") as f:
         f.write("\n".join(lines) + "\n")
     log("\n".join(lines[:25]))
+
+
+def replayed_kernel_counts(torch, make_det, frames, wrappers, what, steps=3):
+    """From a detector's construction on, under torch.profiler: its warm-up,
+    its capture and `steps` replays. Counts each wrapper's device kernel
+    events by name and checks that each kernel ran once in the warm-up and
+    once in every replayed step (a capture runs nothing). Returns the kernel
+    runs a replayed step, by wrapper."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        det = make_det()
+        for _ in range(steps):
+            det.detect(frames)
+        torch.cuda.synchronize()
+    counts = {w: 0 for w in wrappers}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for w in wrappers:
+            if any(name in e.key for name in KERNEL_NAMES[w]):
+                counts[w] += e.count
+    per_step = {w: (n - det.captures) / det.replays for w, n in counts.items()}
+    log(f"  {what}: kernel events over {det.captures} warm-up and {det.replays} replayed steps "
+        f"{counts}; a replayed step runs {per_step}")
+    for w, n in counts.items():
+        check(n == det.captures + det.replays,
+              f"{what}: {w}'s kernel ran {n} times, expected once in the warm-up and once a "
+              f"replayed step ({det.captures + det.replays})")
+    return per_step
 
 
 # --- serving path: resident bf16 behind InferenceServer ----------------------
@@ -684,32 +883,35 @@ def serving_path(torch, counters):
     steps, reset = 8, (5, 4)
     rng = np.random.default_rng(SEED + 3)
     frames = rng.integers(0, 256, (steps, STREAMS, cfg.size, cfg.size, 3), dtype=np.uint8)
+    for c in counters:
+        c.launches = 0
     det = StreamingDetector(model, num_streams=STREAMS, prefilter=512)
-    server = InferenceServer(det, window_ms=3.0, dispatch_thread=True)  # its warm-up step runs here
+    server = InferenceServer(det, window_ms=3.0, dispatch_thread=True)  # its warm-up step captures
     try:
-        for c in counters:
-            c.launches = 0
         results = serve_clients(server, frames, reset)
         torch.cuda.synchronize()
-        launches = {c.__name__: c.launches for c in counters}
     finally:
         server.close()
+    launches = read_launches(counters, det, f"serving path, {server.steps} server steps")
     log(f"  serving: {server.frames} frames in {server.steps} server steps, "
-        f"launches {launches}, prefilter overflow frames {server.overflow_frames}")
+        f"prefilter overflow frames {server.overflow_frames}")
     check(server.frames == steps * STREAMS, f"server ran {server.frames} frames")
-    for name, n in launches.items():
-        check(n == server.steps, f"{name} launched {n} times in {server.steps} server steps")
+    check(det.replays == server.steps + 1, f"{det.replays} replays in {server.steps} server "
+                                           f"steps and the warm-up step")
     check(all(s.dtype == torch.bfloat16 for s in det.state), "the carried state is not bf16")
     check(all(bool(torch.isfinite(s).all()) for s in det.state), "non-finite state")
     check(all(np.isfinite(r[0]).all() and np.isfinite(r[1]).all()
               for rs in results.values() for r in rs), "non-finite detections")
 
-    # Each stream against the same frames through a plain StreamingDetector
-    # with only that stream's lane active (the same batch shape as the server's).
+    # Each stream against the same frames through a second StreamingDetector
+    # with only that stream's lane active (the same batch shape as the
+    # server's), its state zeroed before each stream.
+    ref = StreamingDetector(model, num_streams=STREAMS, prefilter=512)
     worst = 0.0
     for s, got in results.items():
         lane = server._lane_of[f"s{s}"]
-        ref = StreamingDetector(model, num_streams=STREAMS, prefilter=512)
+        for t in ref.state:
+            t.zero_()
         buf = np.zeros((STREAMS, cfg.size, cfg.size, 3), np.uint8)
         active = np.zeros((STREAMS,), np.float32)
         active[lane] = 1.0
@@ -722,6 +924,15 @@ def serving_path(torch, counters):
     log(f"  serving vs sequential detector: max|score diff| = {worst:.3g} over {STREAMS} streams")
     check(worst <= SERVE_SCORE_ATOL, f"server scores differ from the sequential detector by {worst}")
 
+    # The graphed step against the eager one, all lanes, a reset and an inactive lane.
+    for t in ref.state:
+        t.zero_()
+    state0 = [t.clone() for t in ref.state]
+    g_reset, g_inactive = (1, 5), (2, 3)
+    outs, states = run_graphed(torch, ref, frames[:4], g_reset, g_inactive)
+    held = graphed_vs_eager(torch, ref, frames[:4], outs, states, state0, g_reset, g_inactive,
+                            "bf16 serving path")
+
     # One frame's raw predictions against the port's CPU plain path in bf16.
     cpu_model = apply_inference_precision(build_detector(cfg, stem="fused2", device="cpu"), "bf16")
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
@@ -730,10 +941,96 @@ def serving_path(torch, counters):
     log(f"  one frame vs CPU plain path, bf16 raw predictions: max rel err {rel:.3g} "
         f"of max|ref| ({time.perf_counter() - t0:.1f} s)")
     check(rel < BF16_REL_TOL, f"bf16 card predictions differ from the CPU by {rel} of max|ref|")
-    return model, launches
+    return model, launches, held
 
 
-def time_server(torch, model, per_client=16):
+def matched_share(got, ref, score_tol, box_tol):
+    """The share of got's detections (score > 0) that ref's list for the same
+    frame and lane holds with the same class, the box within box_tol and the
+    score within score_tol (tests/test_torch_port_serving.py's rule)."""
+    same = ((got.classes[..., :, None] == ref.classes[..., None, :])
+            & ((got.boxes[..., :, None, :] - ref.boxes[..., None, :, :]).abs() < box_tol).all(-1)
+            & ((got.scores[..., :, None] - ref.scores[..., None, :]).abs() < score_tol)).any(-1)
+    live = got.scores > 0
+    return (same & live).sum().item() / max(live.sum().item(), 1)
+
+
+def chunk_path(torch, counters, model, state_tol, what):
+    """A profile at chunk=2: 16 streams x 4 frames of 320x320 in two steps,
+    lane 5 reset at the chunk boundary, against four chunk-1 steps. The
+    carried state is continuous in the inputs and is held at state_tol
+    (max|diff|, relative to max|ref| in bf16). The detections pass through
+    thresholds, NMS and top-k, where a last-bit change of a box can flip a
+    decision: their sorted scores are held at CHUNK_SCORE_REL of the frame's
+    max score, and at least CHUNK_MATCH_SHARE of each frame's detections must
+    match. So that the match can fail, the other frame of the same chunk
+    must match less than that share."""
+    from tdrn_tpu_torch.inference import StreamingDetector
+
+    size = model.cfg.size
+    frames = np.random.default_rng(SEED + 5).integers(
+        0, 256, (4, STREAMS, size, size, 3), dtype=np.uint8)
+    bf16 = model.dtype == torch.bfloat16
+    score_rel = CHUNK_SCORE_REL["bf16" if bf16 else "fp32"]
+    box_tol = CHUNK_BOX_ATOL["bf16" if bf16 else "fp32"]
+    prefilter = 512 if bf16 else None
+    for c in counters:
+        c.launches = 0
+    det = StreamingDetector(model, num_streams=STREAMS, prefilter=prefilter, chunk=2)
+    out_a = det.detect(frames[0:2])
+    det.reset([5])
+    out_b = det.detect(frames[2:4])
+    torch.cuda.synchronize()
+    launches = read_launches(counters, det, f"{what} at chunk 2, 2 steps")
+    check(det.replays == 2, f"{det.replays} replays in 2 steps")
+    check(out_a.scores.shape == (2, STREAMS, model.cfg.top_k), "chunk-2 detection shape")
+    ref = StreamingDetector(model, num_streams=STREAMS, prefilter=prefilter)
+    wants, gots = [], []
+    for t in range(4):
+        if t == 2:
+            ref.reset([5])
+        wants.append(ref.detect(frames[t]))
+        gots.append(type(wants[t])(*(None if f is None else f[t % 2] for f in (out_a, out_b)[t // 2])))
+    gap, share, control = 0.0, 1.0, 0.0
+    for t, (got, want) in enumerate(zip(gots, wants)):
+        scale = want.scores.abs().max().item()
+        share = min(share, matched_share(got, want, score_rel * scale, box_tol))
+        # The other frame of the same chunk (0 with 1, 2 with 3).
+        control = max(control, matched_share(got, wants[t ^ 1], score_rel * scale, box_tol))
+        w, g = want.scores.sort(dim=-1).values, got.scores.sort(dim=-1).values
+        gap = max(gap, (g - w).abs().max().item() / scale)
+    state_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(det.state, ref.state))
+    if bf16:
+        state_err /= max(b.float().abs().max().item() for b in ref.state)
+    log(f"  {what}, chunk 2 vs two chunk-1 steps a chunk: state max|diff| {state_err:.3g} "
+        f"{'of max|ref| ' if bf16 else ''}(bound {state_tol:g}); sorted scores max|diff| / "
+        f"max|ref| {gap:.3g} (bound {score_rel:g}); matching detections (score within "
+        f"{score_rel:g} of max|ref|, box within {box_tol:g}), least share a frame {share:.4f} "
+        f"(bound {CHUNK_MATCH_SHARE}); the other frame of the chunk matches at most "
+        f"{control:.4f} (bound: below {CHUNK_MATCH_SHARE})")
+    check(state_err <= state_tol, f"{what}: chunk-2 state differs from chunk 1 by {state_err}")
+    check(gap <= score_rel, f"{what}: chunk-2 sorted scores differ by {gap} of max|ref|")
+    check(share >= CHUNK_MATCH_SHARE, f"{what}: only {share} of the chunk-2 detections match")
+    check(control < CHUNK_MATCH_SHARE,
+          f"{what}: the match rule cannot tell frames apart ({control} match the other frame)")
+    return launches
+
+
+def batch_rel_err(torch, model, frames):
+    """One forward of 32 frames against two forwards of 16 (zero state): max
+    over the heads of max|diff| / max|ref|. Nonzero where the convolutions
+    sum in another order at batch 32, which is what chunk 2 runs at."""
+    from tdrn_tpu_torch.ops.preprocess import preprocess_batch
+
+    with torch.inference_mode():
+        x = preprocess_batch(torch.from_numpy(frames).cuda(), model.cfg, model.dtype)
+        p32, _ = model(x, model.zero_state(32))
+        halves = [model(h, model.zero_state(16))[0] for h in (x[:16], x[16:])]
+    return max(((a - torch.cat(b)).abs().max() / torch.cat(b).abs().max()).item()
+               for a, b in zip(p32, zip(*halves)))
+
+
+def time_server(torch, model, per_client=16, prefilter=512):
     """frames/s through InferenceServer with one client thread a stream, and
     the server's request latency percentiles."""
     from tdrn_tpu_torch.inference import StreamingDetector
@@ -742,7 +1039,7 @@ def time_server(torch, model, per_client=16):
     size = model.cfg.size
     rng = np.random.default_rng(SEED + 4)
     frames = rng.integers(0, 256, (per_client, STREAMS, size, size, 3), dtype=np.uint8)
-    server = InferenceServer(StreamingDetector(model, num_streams=STREAMS, prefilter=512))
+    server = InferenceServer(StreamingDetector(model, num_streams=STREAMS, prefilter=prefilter))
     try:
         serve_clients(server, frames[:2])  # warm the lanes
         server.latency, steps0 = LatencyStats(), server.steps
@@ -754,6 +1051,20 @@ def time_server(torch, model, per_client=16):
     return per_client * STREAMS / wall, server.steps - steps0, server.latency.snapshot()
 
 
+def log_times(what, card, graphed, eager, frames_a_step=16):
+    (g_ms, g_host), (e_ms, e_host) = graphed, eager
+    log(f"{what}: graphed step {g_ms:.3f} ms (host {g_host:.3f} ms), "
+        f"{frames_a_step / g_ms * 1e3:.1f} frames/s; eager step {e_ms:.3f} ms "
+        f"(host {e_host:.3f} ms), {frames_a_step / e_ms * 1e3:.1f} frames/s on {card}")
+
+
+def log_server(what, card, res):
+    fps, server_steps, lat = res
+    log(f"InferenceServer {what}, 16 concurrent clients x 16 frames: {fps:.1f} frames/s in "
+        f"{server_steps} steps ({16 * 16 / server_steps:.2f} frames a step), "
+        f"request latency {json.dumps(lat)} on {card}")
+
+
 def main() -> int:
     import torch
 
@@ -762,6 +1073,7 @@ def main() -> int:
         return 2
     import tdrn_tpu_torch
     from tdrn_tpu_torch import _build
+    from tdrn_tpu_torch.inference import StreamingDetector
     from tdrn_tpu_torch.ops.cascade import fused_refine_cascade
     from tdrn_tpu_torch.ops.nms_suppress import suppress_sorted
     from tdrn_tpu_torch.ops.stem import fused_conv_stage, fused_stem_stage1
@@ -794,31 +1106,64 @@ def main() -> int:
         results.append(r)
 
     counters = [fused_refine_cascade, suppress_sorted, fused_stem_stage1]
-    log("fp32 path (fused stem):")
-    model, fp32_launches = main_path(torch, counters)
-    log("serving path (resident bf16, fused2 stem, prefilter 512, InferenceServer):")
-    model16, launches = serving_path(torch, counters + [fused_conv_stage])
+    log("fp32 path (fused stem), graphed:")
+    model, fp32_launches, fp32_held = main_path(torch, counters)
+    counters16 = counters + [fused_conv_stage]
+    log("serving path (resident bf16, fused2 stem, prefilter 512, InferenceServer), graphed:")
+    model16, launches, bf16_held = serving_path(torch, counters16)
+    log("chunk 2 (2 frames a stream a step), fp32 path and bf16 serving profile:")
+    fp32_chunk_launches = chunk_path(torch, counters, model, CHUNK_STATE_ATOL, "fp32 path")
+    chunk_launches = chunk_path(torch, counters16, model16, BF16_REL_TOL, "bf16 serving profile")
+    frames32 = np.random.default_rng(SEED + 6).integers(0, 256, (32, 320, 320, 3), dtype=np.uint8)
+    log(f"  batch 32 against 2 x 16, zero state, raw predictions max|diff| / max|ref|: "
+        f"fp32 {batch_rel_err(torch, model, frames32):.3g}, "
+        f"bf16 {batch_rel_err(torch, model16, frames32):.3g}")
 
     # Every timing runs before any profiling: a profiler session leaves host
-    # overhead behind, and the bf16 step is bound by the host.
-    _, _, step_ms, _ = time_streaming(torch, model)
-    log(f"streaming vid_320 fp32 S=16 480x640, TF32 off: step {step_ms:.3f} ms, "
+    # overhead behind.
+    _, _, step_ms, _ = time_streaming(torch, model, steps=10)
+    log(f"streaming vid_320 fp32 S=16 480x640, TF32 off: graphed step {step_ms:.3f} ms, "
         f"{16 / step_ms * 1e3:.1f} frames/s on {card}")
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for cuDNN convs
-    det, frames, tf32_ms, host_ms = time_streaming(torch, model)
-    log(f"streaming vid_320 fp32 S=16 480x640, cuDNN TF32 on: step {tf32_ms:.3f} ms "
-        f"(host enqueue {host_ms:.3f} ms), {16 / tf32_ms * 1e3:.1f} frames/s on {card}")
+    det, frames, *fp32_graphed = time_streaming(torch, model)
+    fp32_eager = time_eager(torch, det, frames)
+    log_times("streaming vid_320 fp32 S=16 480x640, cuDNN TF32 on", card, fp32_graphed, fp32_eager)
     # The serving profile with cuDNN's default TF32 (its fp32 heads).
-    det16, frames16, bf16_ms, host_ms = time_streaming(torch, model16, hw=(320, 320), prefilter=512)
-    log(f"streaming vid_320 bf16 fused2 S=16 320x320 prefilter 512: step {bf16_ms:.3f} ms "
-        f"(host enqueue {host_ms:.3f} ms), {16 / bf16_ms * 1e3:.1f} frames/s on {card}")
-    fps, server_steps, lat = time_server(torch, model16)
-    log(f"InferenceServer bf16, 16 concurrent clients x 16 frames: {fps:.1f} frames/s in "
-        f"{server_steps} steps ({16 * 16 / server_steps:.2f} frames a step), "
-        f"request latency {json.dumps(lat)} on {card}")
+    det16, frames16, *bf16_graphed = time_streaming(torch, model16, hw=(320, 320), prefilter=512)
+    bf16_eager = time_eager(torch, det16, frames16)
+    log_times("streaming vid_320 bf16 fused2 S=16 320x320 prefilter 512", card, bf16_graphed,
+              bf16_eager)
+    _, _, chunk_ms, chunk_host = time_streaming(torch, model16, hw=(320, 320), prefilter=512,
+                                                chunk=2)
+    log(f"streaming vid_320 bf16 fused2 chunk 2 S=16 320x320 prefilter 512: graphed step "
+        f"{chunk_ms:.3f} ms for 2 frames a stream (host {chunk_host:.3f} ms), "
+        f"{32 / chunk_ms * 1e3:.1f} frames/s on {card}")
+    log_server("bf16 serving path", card, time_server(torch, model16))
+    log_server("fp32 path at 320x320, prefilter off", card,
+               time_server(torch, model, prefilter=None))
+
+    log("kernels a replayed step, by the profiler's kernel events:")
+    names, names16 = [c.__name__ for c in counters], [c.__name__ for c in counters16]
+    frames_c2 = torch.tensor(np.random.default_rng(SEED + 7).integers(
+        0, 256, (2, STREAMS, 320, 320, 3), dtype=np.uint8))
+    per_step = {
+        "bf16_serving": replayed_kernel_counts(
+            torch, lambda: StreamingDetector(model16, num_streams=STREAMS, prefilter=512),
+            frames16, names16, "bf16 serving path"),
+        "fp32_fused": replayed_kernel_counts(
+            torch, lambda: StreamingDetector(model, num_streams=STREAMS), frames, names,
+            "fp32 path"),
+        "bf16_chunk2": replayed_kernel_counts(
+            torch, lambda: StreamingDetector(model16, num_streams=STREAMS, prefilter=512, chunk=2),
+            frames_c2, names16, "bf16 serving profile at chunk 2"),
+        "fp32_chunk2": replayed_kernel_counts(
+            torch, lambda: StreamingDetector(model, num_streams=STREAMS, chunk=2), frames_c2,
+            names, "fp32 path at chunk 2"),
+    }
     if "--profile" in sys.argv[1:]:
-        profile_step(torch, det, frames, "profile.txt")
-        profile_step(torch, det16, frames16, "profile_bf16.txt")
+        profile_step(torch, lambda: det.detect(frames), "profile.txt")
+        profile_step(torch, lambda: det16.detect(frames16), "profile_bf16.txt")
+        profile_step(torch, eager_step(torch, det16, frames16), "profile_bf16_eager.txt")
 
     extra = ("tflops", "cudnn_chain_ms", "ms_fp32_input", "ms_fp32_compute", "ms_warm",
              "ms_repeats", "ms_per_anchor", "amax_ms", "ms_early", "ms_k1024")
@@ -827,8 +1172,14 @@ def main() -> int:
                     ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=None,
                     launches_by_path={"fp32_fused": fp32_launches.get(r["wrapper"], 0),
-                                      "bf16_serving": launches[r["wrapper"]]},
+                                      "bf16_serving": launches[r["wrapper"]],
+                                      "fp32_chunk2": fp32_chunk_launches.get(r["wrapper"], 0),
+                                      "bf16_chunk2": chunk_launches[r["wrapper"]]},
+                    runs_per_replayed_step=per_step["bf16_serving"][r["wrapper"]],
+                    runs_per_replayed_step_by_path={
+                        path: counts.get(r["wrapper"], 0) for path, counts in per_step.items()},
                     **{k: r[k] for k in extra if k in r}) for r in results]
+    log(f"graphed vs eager: fp32 path {fp32_held}, bf16 serving path {bf16_held}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

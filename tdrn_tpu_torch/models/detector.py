@@ -12,14 +12,21 @@ are the flax parameter paths joined with "." (weights.py converts layouts).
 carry, and ``head_dtype`` that of the ARM/ODM heads; each module's parameters
 are held in its compute dtype, the L2Norm scales in fp32, and the raw
 predictions are returned in fp32 whatever the heads computed in.
+
+Three inference-only settings mirror the flax fields of the same names:
+``chunk`` (frame-major micro-batching, set by ``clone``), ``fold_mean`` and
+``pad_stem`` (set by the transforms of utils/precision.py, which also rewrite
+conv1_1).
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from tdrn_tpu_torch import _build
 from tdrn_tpu_torch.config import DetectorConfig
@@ -48,9 +55,24 @@ class TDRN(nn.Module):
         temporal_cell: str = "convgru",
         dtype: torch.dtype = torch.float32,
         head_dtype: Optional[torch.dtype] = None,
+        chunk: int = 1,
+        fold_mean: bool = False,
+        pad_stem: int = 0,
     ):
+        """chunk: frames per stream in one forward. x is then (chunk*B, ...)
+        FRAME-MAJOR (frame 0's B streams, then frame 1's, ...) and the state
+        stays (B, ...): the backbone, TCB and heads run over all chunk*B
+        frames at once, the temporal cell steps chunk times.
+        fold_mean: the model takes raw-pixel rgb + ones input (4 channels).
+        pad_stem: the input is zero-padded to this many channels (0 = off).
+        """
         super().__init__()
+        if (fold_mean or pad_stem) and stem != "conv":
+            raise ValueError("fold_mean and pad_stem are conv-stem only")
         self.cfg = cfg
+        self.chunk = int(chunk)
+        self.fold_mean = bool(fold_mean)
+        self.pad_stem = int(pad_stem)
         self.dtype = dtype
         self.head_dtype = head_dtype or dtype
         self.temporal_enabled = temporal
@@ -58,7 +80,8 @@ class TDRN(nn.Module):
         self.tcb_channels = tcb_channels
         w = lambda c: max(8, int(c * width_mult))
         src_channels = (w(512), w(512), w(1024), w(512))
-        self.backbone = VGG16Reduced(width_mult=width_mult, stem=stem)
+        in_channels = self.pad_stem or (4 if self.fold_mean else 3)
+        self.backbone = VGG16Reduced(in_channels, width_mult=width_mult, stem=stem)
         self.l2norm0 = L2Norm(src_channels[0], 10.0)
         self.l2norm1 = L2Norm(src_channels[1], 8.0)
         self.arm = MultiBoxHead(2, cfg.anchors_per_cell, src_channels)
@@ -77,8 +100,11 @@ class TDRN(nn.Module):
     def forward(
         self, x: torch.Tensor, state: Optional[State] = None
     ) -> Tuple[RawPredictions, Optional[State]]:
-        """x: (B, size, size, 3) preprocessed frames (NHWC, mean-subtracted);
+        """x: (chunk*B, size, size, 3) preprocessed frames (NHWC,
+        mean-subtracted; 4 channels, raw rgb + ones, under fold_mean);
         state: per-scale (B, C, f, f) tensors or None (zeros)."""
+        if self.pad_stem and x.shape[-1] < self.pad_stem:
+            x = F.pad(x, (0, self.pad_stem - x.shape[-1]))
         sources = self.backbone(x)
         sources[0] = self.l2norm0(sources[0])
         sources[1] = self.l2norm1(sources[1])
@@ -88,10 +114,36 @@ class TDRN(nn.Module):
             feats = apply_arm_guided_sampling(feats, arm_loc, self.cfg)
         new_state = None
         if self.temporal_enabled:
-            feats, new_state = self.temporal(feats, state)
+            if self.chunk > 1:
+                feats, new_state = self._temporal_chunk(feats, state)
+            else:
+                feats, new_state = self.temporal(feats, state)
         odm_loc, odm_conf = self.odm(feats)
         preds = RawPredictions(arm_loc, arm_conf, odm_loc, odm_conf)
         return RawPredictions(*(t.float() for t in preds)), new_state
+
+    def _temporal_chunk(self, feats, state):
+        """Split the frame-major (chunk*B) features into chunk frames, step the
+        cell over them in order, and stack the outputs back frame-major."""
+        f = self.chunk
+        per_frame = [ft.unflatten(0, (f, -1)).unbind(0) for ft in feats]  # scale -> frames
+        outs = []
+        for i in range(f):
+            out_i, state = self.temporal([frames[i] for frames in per_frame], state)
+            outs.append(out_i)
+        stacked = [torch.stack(scale).flatten(0, 1) for scale in zip(*outs)]
+        return stacked, state
+
+    def clone(self, *, chunk: int) -> "TDRN":
+        """A copy that shares every parameter and runs ``chunk`` frames a
+        stream in one forward, as flax's ``Module.clone(chunk=...)`` does."""
+        out = copy.copy(self)  # a new __dict__; the submodules are shared
+        # Dicts of its own, so that registering on the copy leaves self as it is.
+        out._modules = self._modules.copy()
+        out._parameters = self._parameters.copy()
+        out._buffers = self._buffers.copy()
+        out.chunk = int(chunk)
+        return out
 
     def zero_state(self, batch: int) -> State:
         return init_state(

@@ -10,6 +10,8 @@ the K3 wrapper (ops/stem.py) on the same ``conv1_1``/``conv1_2`` parameters,
 so a ``stem="conv"`` checkpoint serves it unchanged. ``stem="fused2"`` also
 runs stage 2 (conv2_1, conv2_2, pool2) as the K4 wrapper on K3's NHWC output.
 The convolutions compute in the dtype of the backbone's parameters.
+``in_channels`` is 3, 4 under the fold-mean transform (rgb + ones) and the
+padded count under pad-stem (utils/precision.py); both are conv-stem only.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ class VGG16Reduced(nn.Module):
         self.conv6_2 = conv3x3(w(256), w(512), stride=2)
 
     def forward(self, x_nhwc: torch.Tensor) -> List[torch.Tensor]:
-        """x: (B, H, W, 3) preprocessed frames, NHWC; returns NCHW maps."""
+        """x: (B, H, W, in_channels) preprocessed frames, NHWC; returns NCHW maps."""
         dtype = self.conv1_1.weight.dtype
         x_nhwc = x_nhwc.to(dtype)
         start_stage = 0

@@ -80,7 +80,10 @@ class InferenceServer:
         self.overflow_frames = 0
         self.latency = LatencyStats()
         # One step before the dispatcher starts, so the first request does
-        # not pay for building the kernels and picking the conv algorithms.
+        # not pay for building the kernels and capturing the step's CUDA
+        # graph. The capture runs here, on the constructing thread, while no
+        # thread of the server launches CUDA work: the dispatcher starts
+        # after it, and client threads touch only the host.
         zeros = np.zeros((self.lanes, self.size, self.size, 3), np.uint8)
         self.det.detect(zeros, active=np.zeros((self.lanes,), np.float32))
         self.det.reset()

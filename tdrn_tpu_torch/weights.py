@@ -74,3 +74,25 @@ def load_jax_params(model: torch.nn.Module, tree) -> torch.nn.Module:
     a bf16 parameter that rounds to nearest even, as ``astype(bfloat16)`` does."""
     model.load_state_dict(params_from_jax(tree), strict=True)
     return model
+
+
+def load_random_params(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Load a seeded numpy draw in the JAX layout into ``model`` through
+    :func:`load_jax_params`: xavier-uniform kernels, small normal biases, the
+    L2Norm scales as built. The weights of the benchmarks and smoke runs."""
+    rng = np.random.default_rng(seed)
+    tree = params_to_jax(model.state_dict())
+
+    def fill(node):
+        for key, v in node.items():
+            if isinstance(v, dict):
+                fill(v)
+            elif key == "kernel":
+                kh, kw, ci, co = v.shape
+                lim = np.sqrt(6.0 / (kh * kw * (ci + co)))
+                node[key] = rng.uniform(-lim, lim, v.shape).astype(np.float32)
+            elif key == "bias":
+                node[key] = rng.normal(0.0, 0.01, v.shape).astype(np.float32)
+
+    fill(tree["params"])
+    return load_jax_params(model, tree)

@@ -1,15 +1,20 @@
 """Rules of the port that hold without a GPU: it imports no JAX and nothing of
-tdrn_tpu; its entry points refuse to run on a CUDA-less machine unless asked
-for the CPU; its kernel wrappers reject what their kernels do not take and
-never hand a non-CPU tensor to the plain version; the ctypes signatures
-match the CUDA sources' entry points."""
+tdrn_tpu (its package, bench_torch.py and tools/device_bench_torch.py); its
+entry points refuse to run on a CUDA-less machine unless asked for the CPU;
+the streaming step's path holds no host sync, which would break its CUDA
+graph capture; chunk, fold-mean and pad-stem no longer raise; its kernel
+wrappers reject what their kernels do not take and never hand a non-CPU
+tensor to the plain version; the ctypes signatures match the CUDA sources'
+entry points."""
 
 import ctypes
+import dataclasses
 import os
 import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -32,9 +37,16 @@ def _modules():
                 yield rel.replace(os.sep, ".").removesuffix(".__init__")
 
 
+# The port's scripts at the root and under tools/ (they import torch and
+# tdrn_tpu_torch at their top level).
+SCRIPTS = ("bench_torch", "tools.device_bench_torch")
+
+
 def test_import_leaves_out_jax_and_tdrn_tpu():
     mods = sorted(_modules())
     assert "tdrn_tpu_torch.inference" in mods and "tdrn_tpu_torch.models.detector" in mods
+    assert "tdrn_tpu_torch.eval.runner" in mods and "tdrn_tpu_torch.eval.voc_eval" in mods
+    mods += SCRIPTS
     code = (
         "import sys\n"
         + "".join(f"import {m}\n" for m in mods)
@@ -57,7 +69,8 @@ _FORBIDDEN = re.compile(
 
 
 def test_source_names_no_jax_import():
-    for path in [os.path.join(ROOT, f) for f in ("chip_smoke.py", "chip_compare.py")] + [
+    scripts = ("chip_smoke.py", "chip_compare.py", "bench_torch.py", "tools/device_bench_torch.py")
+    for path in [os.path.join(ROOT, f) for f in scripts] + [
         os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")
     ]:
         with open(path) as fh:
@@ -65,6 +78,47 @@ def test_source_names_no_jax_import():
         assert hit is None, f"{path}: {hit.group(0)!r}"
     assert _FORBIDDEN.search("from tdrn_tpu_torch.ops import nms") is None
     assert _FORBIDDEN.search("import tdrn_tpu.ops") is not None
+
+
+# Calls that wait for the card or read its values on the host: any of them on
+# the streaming step's path would break the step's CUDA graph capture.
+_HOST_SYNC = re.compile(r"\.item\(\)|\.cpu\(\)|\.tolist\(\)|\.nonzero\(|torch\.nonzero")
+
+
+def _step_path_sources():
+    yield os.path.join(PKG, "inference.py")
+    for sub in ("ops", "models"):
+        d = os.path.join(PKG, sub)
+        yield from (os.path.join(d, f) for f in sorted(os.listdir(d)) if f.endswith(".py"))
+
+
+def test_step_path_has_no_host_sync():
+    paths = list(_step_path_sources())
+    assert len(paths) > 10
+    for path in paths:
+        with open(path) as fh:
+            for n, line in enumerate(fh, 1):
+                hit = _HOST_SYNC.search(line)
+                assert hit is None, f"{path}:{n}: {hit.group(0)!r} on the captured step's path"
+    for bad in ("x.item()", "t.cpu()", "a.tolist()", "m.nonzero(as_tuple=True)", "torch.nonzero(m)"):
+        assert _HOST_SYNC.search(bad) is not None, bad
+    assert _HOST_SYNC.search("t.cpu_count, x.items()") is None
+
+
+def test_chunk_fold_mean_and_pad_stem_are_ported():
+    """No NotImplementedError is left for them, in the source or in a call."""
+    from tdrn_tpu_torch.inference import StreamingDetector
+    from tdrn_tpu_torch.models.detector import build_detector
+    from tdrn_tpu_torch.utils.precision import apply_fold_mean, apply_pad_stem
+
+    for rel in ("inference.py", "models/detector.py", "utils/precision.py", "ops/preprocess.py"):
+        with open(os.path.join(PKG, rel)) as fh:
+            src = fh.read()
+        for m in re.finditer(r"NotImplementedError\(([^)]*)\)", src):
+            assert not re.search(r"chunk|fold|pad", m.group(1), re.I), f"{rel}: {m.group(0)}"
+    model = build_detector(TINY_64, width_mult=0.125, tcb_channels=32, device="cpu")
+    assert StreamingDetector(model, chunk=2, device="cpu").model.chunk == 2
+    assert apply_fold_mean(model).fold_mean and apply_pad_stem(model, 8).pad_stem == 8
 
 
 _EXTERN_C = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)')
@@ -129,8 +183,10 @@ def test_unported_options_raise():
                dict(backbone="resnet101"), dict(head_dtype=torch.float16)):
         with pytest.raises(NotImplementedError):
             build_detector(TINY_64, **kw, **small)
+    approx = dataclasses.replace(TINY_64, approx_topk=True)
+    det = StreamingDetector(build_detector(approx, **small), device="cpu")
     with pytest.raises(NotImplementedError):
-        StreamingDetector(build_detector(TINY_64, **small), chunk=2, device="cpu")
+        det.detect(np.zeros((1, 64, 64, 3), np.uint8))
 
 
 def _preds(p=255, c=4, b=1):

@@ -148,7 +148,7 @@ def test_fused2_forward_matches_jax_fp32():
 
 
 def test_bf16_transform_casts_the_same_modules_as_jax():
-    _, params, model = _models()
+    jmodel, params, model = _models()
     assert TP.FP32_SUBTREES == JP.FP32_SUBTREES
     m16 = TP.apply_inference_precision(model, "bf16")
     p16 = JP.cast_params_bf16(params)
@@ -166,8 +166,12 @@ def test_bf16_transform_casts_the_same_modules_as_jax():
         assert TP.apply_inference_precision(model, precision) is model
     with pytest.raises(ValueError):
         TP.apply_inference_precision(model, "int4")
-    for transform in (TP.apply_fold_mean, TP.apply_pad_stem):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # The conv1_1 transforms refuse the fused2 stem, as the reference does.
+    for transform, jtransform in ((TP.apply_fold_mean, JP.apply_fold_mean),
+                                  (TP.apply_pad_stem, JP.apply_pad_stem)):
+        with pytest.raises(ValueError, match="stem"):
+            jtransform(jmodel, params)
+        with pytest.raises(ValueError, match="stem"):
             transform(model)
 
 
