@@ -1,8 +1,10 @@
-"""Benchmark of the PyTorch / CUDA port: streaming TDRN-VGG16 @320 per-frame
-inference on one NVIDIA GPU (the port's counterpart of ``bench.py``).
+"""Benchmark of the PyTorch / CUDA port: streaming TDRN per-frame inference
+on one NVIDIA GPU (the port's counterpart of ``bench.py``): VGG-16 or
+ResNet-101, at 320 (vid_320) or 512 (vid_512).
 
     python3 bench_torch.py                        # vid_320, 16 streams, bf16 weights
     python3 bench_torch.py --stem fused2 --frames 200
+    python3 bench_torch.py --backbone resnet101 --config vid_512 --fused_cascade
     python3 bench_torch.py --device cpu --config tiny_64 --frames 2   # CPU smoke only
 
 Prints ONE JSON line with bench.py's fields: {"metric", "value", "unit",
@@ -17,16 +19,20 @@ Prints ONE JSON line with bench.py's fields: {"metric", "value", "unit",
   * latency: a separate loop of full round trips, each step's detections
     copied to the host, on the host clock.
 
-The frames are one seeded uint8 batch already on the card, and the weights a
-seeded random draw (weights.load_random_params). Metric: frames/s for
-streaming 320x320 video; vs_baseline = frames/s / 20, the reference TDRN's
-real-time claim on a 1080Ti-class GPU. On ``--device cpu`` the same loops
-run eagerly on the host clock; those numbers are the CPU's, not a card's.
+The frames are one seeded uint8 batch of the config's size already on the
+card, and the weights a seeded random draw (weights.load_random_params).
+Metric: frames/s for streaming video at the config's size (320x320 for
+vid_320, 512x512 for vid_512); vs_baseline = frames/s / 20, the reference
+TDRN's real-time claim on a 1080Ti-class GPU. ``--approx_topk`` and
+``--prefilter_recall`` set the detect tail's selection options, which the
+port meets with its exact selection. On ``--device cpu`` the same loops run
+eagerly on the host clock; those numbers are the CPU's, not a card's.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import time
@@ -41,15 +47,6 @@ from tdrn_tpu_torch.models.detector import build_detector
 from tdrn_tpu_torch.utils.precision import apply_inference_precision
 
 BASELINE_FPS = 20.0  # reference TDRN real-time claim
-
-# Options of bench.py and tools/device_bench.py that the port does not have
-# yet (ROADMAP.md, queue 1).
-_UNPORTED = {
-    "backbone": ("resnet101",),
-    "cell": ("light", "hybrid"),
-    "stem": ("poly", "poly2", "s2d"),
-}
-
 
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
@@ -72,6 +69,9 @@ def parse_args(argv=None):
     ap.add_argument("--cell", default="convgru", choices=["convgru", "light", "hybrid"])
     ap.add_argument("--prefilter", type=int, default=512,
                     help="anchor cap before the per-class NMS (0 = exact Detect)")
+    ap.add_argument("--fused_cascade", action="store_true",
+                    help="the K1 ARM->ODM cascade kernel (ops/cascade.py)")
+    add_selection_args(ap)
     ap.add_argument("--bf16_weights", action=argparse.BooleanOptionalAction, default=True,
                     help="resident-bf16 feature-pyramid weights and carry, fp32 heads "
                          "and detect (utils/precision.py); --no-bf16_weights: fp32")
@@ -85,26 +85,46 @@ def parse_args(argv=None):
     return args
 
 
+def add_selection_args(ap):
+    """The detect tail's selection options (config.py)."""
+    ap.add_argument("--approx_topk", action=argparse.BooleanOptionalAction, default=None,
+                    help="cfg.approx_topk (the port selects exactly either way)")
+    ap.add_argument("--prefilter_recall", type=float, default=None,
+                    help="cfg.prefilter_recall of the prefilter's selection (exact in the port)")
+
+
 def refuse_unported(ap, args):
     """Exit with an error naming ROADMAP.md on an option the port lacks."""
-    for flag, values in _UNPORTED.items():
-        if getattr(args, flag) in values:
-            ap.error(f"--{flag} {getattr(args, flag)} is not ported yet (ROADMAP.md, queue 1)")
     if args.int8 or args.int8_tcb or args.int8_gru:
-        ap.error("--int8, --int8_tcb and --int8_gru are not ported yet (ROADMAP.md, queue 1 item 9)")
+        ap.error("--int8, --int8_tcb and --int8_gru are not ported yet (ROADMAP.md, queue 1)")
+
+
+def selected_config(args):
+    """The config named by --config with the detect-tail flags applied."""
+    cfg = dataclasses.replace(get_config(args.config), fused_cascade=args.fused_cascade,
+                              prefilter_anchors=args.prefilter)
+    if args.approx_topk is not None:
+        cfg = dataclasses.replace(cfg, approx_topk=args.approx_topk)
+    if args.prefilter_recall is not None:
+        cfg = dataclasses.replace(cfg, prefilter_recall=args.prefilter_recall)
+    return cfg
+
+
+def build_model(args, device, temporal=True):
+    """The detector the flags name, with the seeded random weights."""
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    model = build_detector(selected_config(args), backbone=args.backbone, temporal=temporal,
+                           dtype=dtype, stem=args.stem, temporal_cell=args.cell, device=device)
+    return weights.load_random_params(model, 0)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    cfg = get_config(args.config)
-    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    model = build_detector(cfg, temporal=True, dtype=dtype, stem=args.stem,
-                           temporal_cell=args.cell, device=args.device)
-    model = weights.load_random_params(model, 0)
+    model = build_model(args, args.device)
+    cfg = model.cfg
     if args.bf16_weights:
         model = apply_inference_precision(model, "bf16")
-    det = StreamingDetector(model, num_streams=args.batch,
-                            prefilter=args.prefilter or None, device=args.device)
+    det = StreamingDetector(model, num_streams=args.batch, device=args.device)
     dev = det.device
     frames = torch.from_numpy(np.random.RandomState(0).randint(
         0, 255, (args.batch, cfg.size, cfg.size, 3), dtype=np.uint8)).to(dev)

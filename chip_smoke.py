@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # build, check every kernel, drive both paths
     python3 chip_smoke.py --profile  # also write torch.profiler breakdowns of three
                                      # graphed streaming steps (cuDNN TF32 on) of the
+                                     # ResNet-101 vid_512 path to
+                                     # chiprun_out/profile_resnet101_512.txt, of the
                                      # fp32 path to chiprun_out/profile.txt and of the
                                      # bf16 serving path to chiprun_out/profile_bf16.txt,
                                      # and of three eager bf16 steps to
@@ -33,6 +35,12 @@
    log TFLOP/s, and the time of the same stage as a cuDNN chain in bf16
    channels_last (conv, ReLU, conv, ReLU, max_pool2d) as a yardstick
    (cudnn_chain_ms); the port never calls that chain.
+3b. Holds K1-K4 at the 512 geometry's shapes, each timed as above with its
+   bound: K1 at B=16, P=16320, C=31 (per-anchor max bit-equal); K2 on the
+   rows the vid_512 path sorts (K1's output through the 512-anchor
+   prefilter and the per-class top-200, 16 x 31 rows of 200), bit-equal on
+   the card and on the CPU; K3 at B=16, 512x512 and K4 at B=16, 256x256 x 64,
+   bf16 as served, within 1e-3 of max|ref|.
 4. Drives the fp32 path: StreamingDetector at full-width vid_320 (fused stem,
    fused cascade, fp32), random weights from a seeded numpy draw loaded
    through weights.py, 4 streams x 6 steps of 480x640 uint8 frames with a
@@ -68,6 +76,22 @@
    most 95 % of a frame's detections matched by the other frame of its
    chunk. The raw predictions of one batch-32 forward against two of 16 are
    logged.
+6b. Drives the ResNet-101 vid_512 path at full width: FrozenBN, fused
+   cascade, the seeded random weights, the resident-bf16 profile,
+   StreamingDetector(num_streams=16, prefilter=512), 4 steps of 512x512
+   frames with a reset and an inactive lane. Checks K1 and K2 launched once
+   in the warm-up and once in the capture (K3 and K4 never), one replay a
+   step, shapes, finiteness and a bf16 carry, the graphed detect() against
+   the eager step (bit-equal expected), and one frame's raw predictions
+   against the port's CPU plain path in bf16 (5e-2 of max|ref|) and in fp32
+   with TF32 off (1e-3 of max|ref|); logs max|source| per scale. Then the
+   group-norm ResNet-101 at S=4: graphed against eager over 4 steps with a
+   reset and an inactive lane.
+6c. Drives the plain SSD baseline at full width on VOC_320 (fp32, TF32 off):
+   ssd_detect_topk at B=1 and B=8, K2 launched once a call and no other
+   kernel, the detections equal to the same function with K2's plain
+   version on the card, one image's raw predictions against the CPU (1e-3 of
+   max|ref|), and the eager forward + detect timed at both batches.
 7. Times, before any profiling (a profiler session leaves host overhead
    behind): the fp32 step and the bf16 step at 16 streams, graphed, with the
    eager step (the frames copied from pageable memory, then _step, as
@@ -75,11 +99,16 @@
    steps, each ending in a synchronize, with the host's time of the call
    alone beside it); the bf16 step at chunk 2; and frames/s through the
    server with 16 concurrent clients, with its p50/p99 request latency, for
-   the bf16 serving path and for the fp32 model at 320x320.
+   the bf16 serving path and for the fp32 model at 320x320; and the
+   ResNet-101 vid_512 step, graphed and eager.
 8. Under torch.profiler from a detector's construction on (warm-up, capture
    and three replays), for both paths at chunk 1 and at chunk 2: each
    kernel's device events by name, which must show it once in the warm-up
-   and once in every replayed step.
+   and once in every replayed step; the same for K1 and K2 on the ResNet-101
+   path. Then each other VGG stem (s2d, poly, poly2) and temporal cell
+   (light, hybrid) at vid_320 in the resident-bf16 profile, S=4: 4 graphed
+   steps against eager with a reset and an inactive lane, the launch
+   counts, and K1 and K2 once a replayed step.
 9. Prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises; there is no fallback to the CPU. It imports nothing
@@ -90,6 +119,7 @@ timed with TF32 off and again with cuDNN's default (TF32 on).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -545,24 +575,26 @@ def phase_conv_stage(torch, rng):
 
 def random_params(model, seed):
     """A seeded numpy draw in the JAX layout, loaded through weights.py:
-    xavier-uniform kernels, small normal biases, the L2Norm scales as built.
-    The same draw as weights.load_random_params, kept here because
+    xavier-uniform kernels, small normal biases, the L2Norm and norm scales
+    as built but a ResNet block's last (bn3), uniform in [0.1, 0.3). The same draw as weights.load_random_params, kept here because
     chip_compare.py runs these helpers on checkouts that predate it."""
     from tdrn_tpu_torch import weights
 
     rng = np.random.default_rng(seed)
     tree = weights.params_to_jax(model.state_dict())
 
-    def fill(node):
+    def fill(node, name=""):
         for key, v in node.items():
             if isinstance(v, dict):
-                fill(v)
+                fill(v, key)
             elif key == "kernel":
                 kh, kw, ci, co = v.shape
                 lim = np.sqrt(6.0 / (kh * kw * (ci + co)))
                 node[key] = rng.uniform(-lim, lim, v.shape).astype(np.float32)
             elif key == "bias":
                 node[key] = rng.normal(0.0, 0.01, v.shape).astype(np.float32)
+            elif key == "scale" and name == "bn3":  # a ResNet block's last norm
+                node[key] = rng.uniform(0.1, 0.3, v.shape).astype(np.float32)
 
     fill(tree["params"])
     return weights.load_jax_params(model, tree)
@@ -1065,6 +1097,306 @@ def log_server(what, card, res):
         f"request latency {json.dumps(lat)} on {card}")
 
 
+# --- the 512 geometry: K1-K4 at its shapes ----------------------------------
+
+
+@contextlib.contextmanager
+def k2_replaced(fn):
+    """ops/nms.py's K2 wrapper replaced by fn(real_wrapper) while the block
+    runs: a recorder of its calls, or K2's plain version."""
+    from tdrn_tpu_torch.ops import nms as nms_mod
+
+    real = nms_mod.suppress_sorted
+    nms_mod.suppress_sorted = fn(real)
+    try:
+        yield
+    finally:
+        nms_mod.suppress_sorted = real
+
+
+def kernels_512(torch, rng, results, card):
+    """K1-K4 at the 512 geometry's shapes: K1 at B=16, P=16320, C=31 (per-anchor
+    max bit-equal); K2 bit-equal on the rows the vid_512 path sorts (K1's
+    output through the 512-anchor prefilter and the per-class top-200: 16
+    streams x 31 classes); K3 at B=16, 512x512 and K4 on its output's shape
+    (B=16, 256x256, 64 channels), bf16 as served, within 1e-3 of max|ref|.
+    Each timed as at 320 (flushed median of 30) with its bound; the figures
+    go into each kernel's entry under "at_512"."""
+    from tdrn_tpu_torch.config import VID_512
+    from tdrn_tpu_torch.ops.cascade import cascade_plain, fused_refine_cascade
+    from tdrn_tpu_torch.ops.detection import detect_topk
+    from tdrn_tpu_torch.ops.nms_suppress import suppress_plain, suppress_sorted
+    from tdrn_tpu_torch.ops.priors import prior_boxes
+    from tdrn_tpu_torch.ops.stem import fused_conv_stage, fused_stem_stage1, stem_plain
+
+    cfg = dataclasses.replace(VID_512, fused_cascade=True, prefilter_anchors=512)
+    p, c = cfg.num_priors, cfg.num_classes
+    by = {r["name"]: r for r in results}
+    preds = _cascade_inputs(torch, rng, B, p, c)
+    priors = prior_boxes(cfg, torch.device("cuda"))
+    err, _ = _check_cascade(torch, preds, priors, cfg, f"B={B} P={p} C={c}")
+    ms = time_ms(torch, lambda: fused_refine_cascade(preds, priors, cfg))
+    plain_ms = time_ms(torch, lambda: cascade_plain(*preds, priors, *cfg.variance,
+                                                    cfg.arm_filter_thresh))
+    nbytes = 4 * (B * p * (4 + 2 + 4 + c) + p * 4 + B * p * 4 + B * c * p)
+    bms, bb = bound(nbytes, B * p * (6 * c + 40), PEAK_FP32)
+    by["cascade"]["at_512"] = dict(shape=[B, p, c], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bms, bound_by=bb)
+    log(f"  K1 at B={B} P={p} C={c}: max|err| {err:.3g}, per-anchor max bit-equal; "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({bb}) on {card}")
+
+    calls = []
+
+    def recorder(real):
+        def record(boxes, scores, thresh):
+            calls.append((boxes.clone(), scores.clone(), thresh))
+            return real(boxes, scores, thresh)
+        return record
+
+    with k2_replaced(recorder):
+        detect_topk(preds, priors, cfg)
+    check(len(calls) == 1, f"the vid_512 detect tail called K2 {len(calls)} times, expected once")
+    boxes, scores, thresh = calls[0]
+    n, k = scores.shape
+    check((n, k) == (B * c, cfg.top_k), f"K2 rows of the vid_512 path {tuple(scores.shape)}")
+    got, ref = suppress_sorted(boxes, scores, thresh), suppress_plain(boxes, scores, thresh)
+    ref_cpu = suppress_plain(boxes.cpu(), scores.cpu(), thresh)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref) and torch.equal(got.cpu(), ref_cpu),
+          "K2 differs from its plain version on the vid_512 path's rows")
+    ms = time_ms(torch, lambda: suppress_sorted(boxes, scores, thresh))
+    plain_ms = time_ms(torch, lambda: suppress_plain(boxes, scores, thresh))
+    bms, bb = bound(n * k * 24, n * (k * (k - 1) / 2 * 14 + 5 * k), PEAK_FP32)
+    by["nms_suppress"]["at_512"] = dict(shape=[n, k], max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                        bound_ms=bms, bound_by=bb)
+    log(f"  K2 on the vid_512 path's {n} rows of {k} ({int((scores > 0).sum())} candidates, "
+        f"{int((got > 0).sum())} kept): bit-equal on the card and on the CPU; {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({bb}) on {card}")
+    del preds, boxes, scores
+
+    f32, b16 = torch.float32, torch.bfloat16
+    pixels = lambda r, shape: r.uniform(0, 255, shape) - 117.0
+    post_relu = lambda r, shape: np.maximum(r.normal(size=shape), 0.0) * 3
+    for name, fn, h, cin, cmid, cout, scale in (
+            ("stem", fused_stem_stage1, 512, 3, 64, 64, pixels),
+            ("conv_stage", fused_conv_stage, 256, 64, 128, 128, post_relu)):
+        a16 = _bf16(_stage_inputs(torch, rng, B, h, h, cin, cmid, cout, scale))
+        what = f"{'K3' if name == 'stem' else 'K4'} B={B} {h}x{h}"
+        err = _rel_err(torch, fn(*a16, out_dtype=f32), stem_plain(*a16, b16, f32), what,
+                       K3_REL_TOL if name == "stem" else K4_REL_TOL)
+        ms = time_ms(torch, lambda: fn(*a16))
+        plain_ms = time_ms(torch, lambda: stem_plain(*a16, b16, b16))
+        nbytes = 2 * (B * h * h * cin + 9 * cin * cmid + 9 * cmid * cout + B * h * h // 4 * cout)
+        ops = 2 * B * h * h * 9 * (cin * cmid + cmid * cout)
+        bms, bb = bound(nbytes + 4 * (cmid + cout), ops, PEAK_BF16)
+        by[name]["at_512"] = dict(shape=[B, h, h, cin], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bms, bound_by=bb, tflops=ops / ms / 1e9)
+        log(f"  {what}: {ms:.4f} ms = {ops / ms / 1e9:.1f} TFLOP/s, plain {plain_ms:.4f} ms, "
+            f"bound {bms:.4f} ms ({bb}) on {card}")
+        del a16
+
+
+# --- ResNet-101 at vid_512, the new stems and cells, and SSD -----------------
+
+K12 = ("fused_refine_cascade", "suppress_sorted")
+
+
+def check_path_launches(counters, det, what):
+    """K1 and K2 launched once in each warm-up and each capture, K3 and K4
+    never (no path here runs a fused stem)."""
+    k12 = [c for c in counters if c.__name__ in K12]
+    launches = read_launches(k12, det, what)
+    for c in counters:
+        if c.__name__ not in K12:
+            check(c.launches == 0, f"{what}: {c.__name__} launched {c.launches} times")
+            launches[c.__name__] = 0
+    return launches
+
+
+def check_stream(torch, det, outs, what):
+    cfg, s = det.cfg, det.num_streams
+    for o in outs:
+        check(o.boxes.shape == (s, cfg.top_k, 4) and o.classes.dtype == torch.int32,
+              f"{what}: detection shapes")
+        check(bool(torch.isfinite(o.boxes).all() and torch.isfinite(o.scores).all()),
+              f"{what}: non-finite detections")
+    check(all(t.dtype == det.model.dtype for t in det.state), f"{what}: the state's dtype")
+    check(all(bool(torch.isfinite(t).all()) for t in det.state), f"{what}: non-finite state")
+
+
+def drive_graphed(torch, counters, model, frames, reset, inactive, what, prefilter=512):
+    """A detector of model over frames (steps, S, H, W, 3): launch counts,
+    one replay a step, shapes and finiteness, graphed against eager."""
+    from tdrn_tpu_torch.inference import StreamingDetector
+
+    for c in counters:
+        c.launches = 0
+    det = StreamingDetector(model, num_streams=frames.shape[1], prefilter=prefilter)
+    state0 = [t.clone() for t in det.state]
+    outs, states = run_graphed(torch, det, frames, reset, inactive)
+    torch.cuda.synchronize()
+    launches = check_path_launches(counters, det, f"{what}, {frames.shape[0]} steps")
+    check(det.replays == frames.shape[0], f"{what}: {det.replays} replays")
+    check_stream(torch, det, outs, what)
+    held = graphed_vs_eager(torch, det, frames, outs, states, state0, reset, inactive, what)
+    return det, launches, held
+
+
+def resnet_model(torch, norm="frozen", device="cuda"):
+    """Full-width ResNet-101 at vid_512 with the fused cascade and the seeded
+    random weights, fp32."""
+    from tdrn_tpu_torch.config import VID_512
+    from tdrn_tpu_torch.models.detector import build_detector
+
+    cfg = dataclasses.replace(VID_512, fused_cascade=True)
+    return random_params(build_detector(cfg, backbone="resnet101", backbone_norm=norm,
+                                        device=device), SEED)
+
+
+def resnet_path(torch, counters):
+    """The ResNet-101 vid_512 stream in the resident-bf16 profile, 16 streams x
+    4 steps of 512x512 frames, prefilter 512, a reset and an inactive lane;
+    one frame against the CPU in bf16 (5e-2 of max|ref|) and in fp32 with
+    TF32 off (1e-3 of max|ref|); max|source| per scale logged."""
+    from tdrn_tpu_torch.models.detector import build_detector
+    from tdrn_tpu_torch.ops.preprocess import preprocess_batch
+    from tdrn_tpu_torch.utils.precision import apply_inference_precision
+
+    fp32 = resnet_model(torch)
+    model = apply_inference_precision(fp32, "bf16")
+    frames = np.random.default_rng(SEED + 8).integers(0, 256, (4, STREAMS, 512, 512, 3), np.uint8)
+    det, launches, held = drive_graphed(torch, counters, model, frames, (2, 5), (3, 7),
+                                        "ResNet-101 vid_512 bf16")
+    img = torch.tensor(frames[0, :1])
+    with torch.inference_mode():
+        for m, name in ((fp32, "fp32"), (model, "bf16")):
+            src = m.backbone(preprocess_batch(img.cuda(), m.cfg, m.dtype))
+            log(f"  max|source| per scale, {name}: "
+                f"{[round(s.float().abs().max().item(), 3) for s in src]}")
+    t0 = time.perf_counter()
+    cpu32 = build_detector(fp32.cfg, backbone="resnet101", device="cpu")
+    cpu32.load_state_dict({k: v.cpu() for k, v in fp32.state_dict().items()})
+    rel32 = raw_rel_err(torch, fp32, cpu32, img)
+    cpu16 = apply_inference_precision(cpu32, "bf16")
+    rel16 = raw_rel_err(torch, model, cpu16, img)
+    log(f"  one frame vs CPU plain path: raw predictions max rel err fp32 (TF32 off) "
+        f"{rel32:.3g} of max|ref| (bound 1e-3), bf16 {rel16:.3g} (bound {BF16_REL_TOL}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(rel32 < 1e-3, f"ResNet-101 fp32 card predictions differ from the CPU by {rel32}")
+    check(rel16 < BF16_REL_TOL, f"ResNet-101 bf16 card predictions differ from the CPU by {rel16}")
+    return model, launches, held, dict(rel_err_fp32=rel32, rel_err_bf16=rel16)
+
+
+def resnet_group_path(torch, counters):
+    """The group-norm ResNet-101 at vid_512, bf16, S=4: graphed against eager
+    over 4 steps with a reset and an inactive lane."""
+    from tdrn_tpu_torch.utils.precision import apply_inference_precision
+
+    model = apply_inference_precision(resnet_model(torch, "group"), "bf16")
+    frames = np.random.default_rng(SEED + 9).integers(0, 256, (4, 4, 512, 512, 3), np.uint8)
+    _, launches, held = drive_graphed(torch, counters, model, frames, (1, 1), (2, 3),
+                                      "ResNet-101 group norm vid_512 bf16")
+    return launches, held
+
+
+# The other VGG stems and the temporal cells, each at vid_320 in the
+# resident-bf16 profile (fused cascade, prefilter 512).
+VARIANT_PATHS = {
+    "s2d_320": dict(stem="s2d"), "poly_320": dict(stem="poly"), "poly2_320": dict(stem="poly2"),
+    "light_320": dict(temporal_cell="light"), "hybrid_320": dict(temporal_cell="hybrid"),
+}
+
+
+def variant_paths(torch, counters, names):
+    """Each variant at S=4 over 4 steps of 320x320 frames: graphed against
+    eager, launches, and K1/K2 once a replayed step by the profiler."""
+    from tdrn_tpu_torch.config import VID_320
+    from tdrn_tpu_torch.inference import StreamingDetector
+    from tdrn_tpu_torch.models.detector import build_detector
+    from tdrn_tpu_torch.utils.precision import apply_inference_precision
+
+    cfg = dataclasses.replace(VID_320, fused_cascade=True)
+    frames = np.random.default_rng(SEED + 10).integers(0, 256, (4, 4, 320, 320, 3), np.uint8)
+    launches, per_step, held = {}, {}, {}
+    for path, kw in VARIANT_PATHS.items():
+        t0 = time.perf_counter()
+        model = apply_inference_precision(random_params(build_detector(cfg, **kw), SEED), "bf16")
+        _, launches[path], held[path] = drive_graphed(torch, counters, model, frames, (2, 1),
+                                                      (3, 2), path)
+        per_step[path] = replayed_kernel_counts(
+            torch, lambda: StreamingDetector(model, num_streams=4, prefilter=512),
+            torch.tensor(frames[0]), names, path)
+        log(f"  {path}: {time.perf_counter() - t0:.1f} s")
+    return launches, per_step, held
+
+
+def ssd_path(torch, counters, card):
+    """The plain SSD baseline at full width on VOC_320, fp32 (TF32 off):
+    ssd_detect_topk at B=1 and B=8, K2 launched once a call, the detections
+    equal to the same function with K2's plain version on the card, one
+    image's raw predictions against the CPU (1e-3 of max|ref|), timed."""
+    from tdrn_tpu_torch.config import VOC_320
+    from tdrn_tpu_torch.models.ssd import build_ssd, ssd_detect_topk
+    from tdrn_tpu_torch.ops.nms_suppress import suppress_plain
+    from tdrn_tpu_torch.ops.preprocess import preprocess_batch
+    from tdrn_tpu_torch.ops.priors import prior_boxes
+
+    cfg = VOC_320
+    model = random_params(build_ssd(cfg), SEED)
+    priors = prior_boxes(cfg, torch.device("cuda"))
+    imgs = torch.tensor(np.random.default_rng(SEED + 11).integers(0, 256, (8, 320, 320, 3), np.uint8))
+    x = preprocess_batch(imgs.cuda(), cfg)
+
+    def run(b):
+        with torch.inference_mode():
+            loc, conf = model(x[:b])
+            return ssd_detect_topk(loc, conf, priors, cfg)
+
+    for c in counters:
+        c.launches = 0
+    kept = {}
+    for b in (1, 8):
+        det = run(b)
+        with k2_replaced(lambda real: suppress_plain):
+            plain = run(b)
+        torch.cuda.synchronize()
+        check(det.scores.shape == (b, cfg.top_k) and bool(torch.isfinite(det.boxes).all()),
+              f"SSD B={b}: shapes or finiteness")
+        check(all(torch.equal(u, v) for u, v in zip(det[:3], plain[:3])),
+              f"SSD B={b}: detections differ between K2 and its plain version")
+        kept[b] = int((det.scores > 0).sum())
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"  SSD VOC_320: B=1 and B=8 equal with K2 and with its plain version "
+        f"({kept[1]} and {kept[8]} detections kept); launches {launches}")
+    check(launches["suppress_sorted"] == 2, "SSD: K2 not launched once a call")
+    check(all(n == 0 for name, n in launches.items() if name != "suppress_sorted"),
+          "SSD: a kernel other than K2 launched")
+    cpu = build_ssd(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.inference_mode():
+        g = model(x[:1])
+        r = cpu(preprocess_batch(imgs[:1], cfg))
+    rel = max(((a.cpu() - b).abs().max() / b.abs().max()).item() for a, b in zip(g, r))
+    log(f"  SSD one image vs CPU plain path: raw predictions max rel err {rel:.3g} of max|ref| "
+        f"(bound 1e-3)")
+    check(rel < 1e-3, f"SSD card predictions differ from the CPU by {rel}")
+    times = {}
+    for b in (1, 8):
+        for _ in range(3):
+            run(b)
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            run(b)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        times[b] = statistics.median(ts) * 1e3
+        log(f"SSD VOC_320 fp32 (TF32 off), forward + ssd_detect_topk, eager, B={b}: "
+            f"{times[b]:.3f} ms, {b / times[b] * 1e3:.1f} images/s on {card}")
+    return launches, dict(rel_err=rel, ms_b1=times[1], ms_b8=times[8])
+
+
 def main() -> int:
     import torch
 
@@ -1104,6 +1436,10 @@ def main() -> int:
         log(f"{label}: max_abs_err={r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
         results.append(r)
+    t0 = time.perf_counter()
+    log("K1-K4 at the 512 geometry's shapes:")
+    kernels_512(torch, rng, results, card)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     counters = [fused_refine_cascade, suppress_sorted, fused_stem_stage1]
     log("fp32 path (fused stem), graphed:")
@@ -1118,6 +1454,16 @@ def main() -> int:
     log(f"  batch 32 against 2 x 16, zero state, raw predictions max|diff| / max|ref|: "
         f"fp32 {batch_rel_err(torch, model, frames32):.3g}, "
         f"bf16 {batch_rel_err(torch, model16, frames32):.3g}")
+
+    t0 = time.perf_counter()
+    log("ResNet-101 vid_512 path (resident bf16, fused cascade, prefilter 512), graphed:")
+    model_r, resnet_launches, resnet_held, resnet_checks = resnet_path(torch, counters16)
+    group_launches, group_held = resnet_group_path(torch, counters16)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    log("SSD baseline (VOC_320, full width, fp32):")
+    ssd_launches, ssd_checks = ssd_path(torch, counters16, card)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     # Every timing runs before any profiling: a profiler session leaves host
     # overhead behind.
@@ -1138,6 +1484,11 @@ def main() -> int:
     log(f"streaming vid_320 bf16 fused2 chunk 2 S=16 320x320 prefilter 512: graphed step "
         f"{chunk_ms:.3f} ms for 2 frames a stream (host {chunk_host:.3f} ms), "
         f"{32 / chunk_ms * 1e3:.1f} frames/s on {card}")
+    det_r, frames_r, *resnet_graphed = time_streaming(torch, model_r, steps=10, hw=(512, 512),
+                                                      prefilter=512)
+    resnet_eager = time_eager(torch, det_r, frames_r, steps=10)
+    log_times("streaming ResNet-101 vid_512 bf16 S=16 512x512 prefilter 512", card,
+              resnet_graphed, resnet_eager)
     log_server("bf16 serving path", card, time_server(torch, model16))
     log_server("fp32 path at 320x320, prefilter off", card,
                time_server(torch, model, prefilter=None))
@@ -1160,13 +1511,24 @@ def main() -> int:
             torch, lambda: StreamingDetector(model, num_streams=STREAMS, chunk=2), frames_c2,
             names, "fp32 path at chunk 2"),
     }
+    per_step["resnet101_512"] = replayed_kernel_counts(
+        torch, lambda: StreamingDetector(model_r, num_streams=STREAMS, prefilter=512), frames_r,
+        list(K12), "ResNet-101 vid_512 bf16")
+    t0 = time.perf_counter()
+    log("the other stems and cells at vid_320 (resident bf16, S=4), graphed:")
+    variant_launches, variant_steps, variant_held = variant_paths(torch, counters16, list(K12))
+    per_step.update(variant_steps)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
     if "--profile" in sys.argv[1:]:
+        profile_step(torch, lambda: det_r.detect(frames_r), "profile_resnet101_512.txt")
         profile_step(torch, lambda: det.detect(frames), "profile.txt")
         profile_step(torch, lambda: det16.detect(frames16), "profile_bf16.txt")
         profile_step(torch, eager_step(torch, det16, frames16), "profile_bf16_eager.txt")
 
     extra = ("tflops", "cudnn_chain_ms", "ms_fp32_input", "ms_fp32_compute", "ms_warm",
-             "ms_repeats", "ms_per_anchor", "amax_ms", "ms_early", "ms_k1024")
+             "ms_repeats", "ms_per_anchor", "amax_ms", "ms_early", "ms_k1024", "at_512")
+    paths = {"resnet101_512": resnet_launches, "resnet101_group_512": group_launches,
+             "ssd_320": ssd_launches, **variant_launches}
     kernels = [dict(name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"],
                     launches=launches[r["wrapper"]], max_abs_err=r["max_abs_err"],
                     ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
@@ -1174,12 +1536,16 @@ def main() -> int:
                     launches_by_path={"fp32_fused": fp32_launches.get(r["wrapper"], 0),
                                       "bf16_serving": launches[r["wrapper"]],
                                       "fp32_chunk2": fp32_chunk_launches.get(r["wrapper"], 0),
-                                      "bf16_chunk2": chunk_launches[r["wrapper"]]},
+                                      "bf16_chunk2": chunk_launches[r["wrapper"]],
+                                      **{path: n.get(r["wrapper"], 0) for path, n in paths.items()}},
                     runs_per_replayed_step=per_step["bf16_serving"][r["wrapper"]],
                     runs_per_replayed_step_by_path={
                         path: counts.get(r["wrapper"], 0) for path, counts in per_step.items()},
                     **{k: r[k] for k in extra if k in r}) for r in results]
-    log(f"graphed vs eager: fp32 path {fp32_held}, bf16 serving path {bf16_held}")
+    log(f"graphed vs eager: fp32 path {fp32_held}, bf16 serving path {bf16_held}, ResNet-101 "
+        f"vid_512 {resnet_held}, group norm {group_held}, "
+        + ", ".join(f"{path} {h}" for path, h in variant_held.items()))
+    log(f"checks against the CPU: ResNet-101 {json.dumps(resnet_checks)}, SSD {json.dumps(ssd_checks)}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

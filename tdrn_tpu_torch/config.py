@@ -30,8 +30,9 @@ class DetectorConfig:
     conf_thresh: float = 0.01
     nms_thresh: float = 0.45
     top_k: int = 200
-    # Approximate candidate selection; the port supports only False (exact,
-    # equal scores ranked lowest index first) and raises otherwise.
+    # Approximate candidate selection in the JAX package (lax.approx_max_k at
+    # recall 1.0). The port selects exactly either way, equal scores ranked
+    # lowest index first (ops/nms.py), which meets that contract.
     approx_topk: bool = False
     # ARM->ODM decode + softmax + filter as one kernel emitting class-major
     # scores (ops/cascade.py); False = the plain decode_two_stage path.
@@ -39,7 +40,9 @@ class DetectorConfig:
     # Image-wide top-M anchor cap before the per-class NMS (0 = off). Exact
     # whenever fewer than M anchors clear conf_thresh.
     prefilter_anchors: int = 0
-    # < 1.0 selects an approximate prefilter; the port raises for it.
+    # Recall target of the prefilter's anchor selection: below 1.0 the JAX
+    # package may miss each true top-M anchor with probability 1 - recall.
+    # The port keeps the exact selection (ops/detection.py), which meets it.
     prefilter_recall: float = 1.0
     # ARM negative-anchor filter threshold.
     arm_filter_thresh: float = 0.99

@@ -125,9 +125,13 @@ class StreamingDetector:
         prefilter: Optional[int] = None,
         chunk: int = 1,
         device=None,
+        prefilter_recall: Optional[float] = None,
     ):
         """prefilter: image-wide anchor cap before the per-class NMS
         (cfg.prefilter_anchors); None keeps the config's setting.
+        prefilter_recall: the prefilter's recall target
+        (cfg.prefilter_recall); None keeps the config's setting. The port's
+        selection is exact at any target (ops/detection.py).
         chunk: frames per stream per step. The state-independent model runs
         over all chunk*S frames at once (TDRN.chunk), the temporal cell steps
         them in order; reset and active apply once, at the chunk boundary.
@@ -142,6 +146,8 @@ class StreamingDetector:
         self.cfg = model.cfg
         if prefilter is not None:
             self.cfg = dataclasses.replace(self.cfg, prefilter_anchors=int(prefilter))
+        if prefilter_recall is not None:
+            self.cfg = dataclasses.replace(self.cfg, prefilter_recall=float(prefilter_recall))
         self.num_streams = num_streams
         self.top_k = top_k or model.cfg.top_k
         self.priors = prior_boxes(self.cfg, self.device)
@@ -275,12 +281,15 @@ def make_clip_forward(model: TDRN, top_k: Optional[int] = None, device=None):
 
 
 def make_single_image_forward(
-    model: TDRN, top_k: Optional[int] = None, prefilter: Optional[int] = None
+    model: TDRN, top_k: Optional[int] = None, prefilter: Optional[int] = None,
+    prefilter_recall: Optional[float] = None,
 ):
     """Single-image detect: (B, H, W, 3) uint8 -> TopDetections, zero state."""
     cfg = model.cfg
     if prefilter is not None:
         cfg = dataclasses.replace(cfg, prefilter_anchors=int(prefilter))
+    if prefilter_recall is not None:
+        cfg = dataclasses.replace(cfg, prefilter_recall=float(prefilter_recall))
     k = top_k or cfg.top_k
 
     @torch.inference_mode()

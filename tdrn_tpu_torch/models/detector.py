@@ -1,9 +1,10 @@
 """The dual-refinement video detector (the port of ``tdrn_tpu/models/detector.py``).
 
-VGG-16 backbone -> L2Norm on the two shallow scales -> ARM heads -> TCB
-top-down pyramid -> ARM-guided re-sampling -> ConvGRU temporal carry -> ODM
-heads. The forward returns the raw predictions and the new temporal state;
-post-processing (ops/detection.py) is composed by the callers.
+VGG-16 or ResNet-101 backbone -> L2Norm on the two shallow scales -> ARM
+heads -> TCB top-down pyramid -> ARM-guided re-sampling -> temporal carry
+(ConvGRU, light or hybrid cells) -> ODM heads. The forward returns the raw
+predictions and the new temporal state; post-processing (ops/detection.py)
+is composed by the callers.
 
 Module attribute names follow the flax module names, so ``state_dict`` keys
 are the flax parameter paths joined with "." (weights.py converts layouts).
@@ -33,12 +34,26 @@ from tdrn_tpu_torch.config import DetectorConfig
 from tdrn_tpu_torch.models.heads import MultiBoxHead
 from tdrn_tpu_torch.models.layers import L2Norm
 from tdrn_tpu_torch.models.offset import apply_arm_guided_sampling
+from tdrn_tpu_torch.models.resnet import ResNetBackbone
 from tdrn_tpu_torch.models.tcb import TopDownPyramid
 from tdrn_tpu_torch.models.temporal import State, TemporalPropagation, init_state
 from tdrn_tpu_torch.models.vgg import VGG16Reduced
 from tdrn_tpu_torch.ops.detection import RawPredictions
 
 DTYPES = (torch.float32, torch.bfloat16)
+BACKBONES = ("vgg16", "resnet101")
+
+
+def build_backbone(name: str, in_channels: int = 3, width_mult: float = 1.0,
+                   stem: str = "conv", norm: str = "frozen") -> nn.Module:
+    """The backbone module; its ``out_channels`` are the four source widths.
+    ``stem`` applies to vgg16 and ``norm`` to resnet101 only, as in the JAX
+    package."""
+    if name == "vgg16":
+        return VGG16Reduced(in_channels, width_mult=width_mult, stem=stem)
+    if name == "resnet101":
+        return ResNetBackbone(101, in_channels, width_mult=width_mult, norm=norm)
+    raise ValueError(f"unknown backbone {name!r} (one of {BACKBONES})")
 
 
 class TDRN(nn.Module):
@@ -47,12 +62,14 @@ class TDRN(nn.Module):
     def __init__(
         self,
         cfg: DetectorConfig,
+        backbone: str = "vgg16",
         temporal: bool = True,
         arm_guided_sampling: bool = True,
         tcb_channels: int = 256,
         width_mult: float = 1.0,
         stem: str = "conv",
         temporal_cell: str = "convgru",
+        backbone_norm: str = "frozen",
         dtype: torch.dtype = torch.float32,
         head_dtype: Optional[torch.dtype] = None,
         chunk: int = 1,
@@ -63,12 +80,18 @@ class TDRN(nn.Module):
         FRAME-MAJOR (frame 0's B streams, then frame 1's, ...) and the state
         stays (B, ...): the backbone, TCB and heads run over all chunk*B
         frames at once, the temporal cell steps chunk times.
-        fold_mean: the model takes raw-pixel rgb + ones input (4 channels).
-        pad_stem: the input is zero-padded to this many channels (0 = off).
+        fold_mean: the model takes raw-pixel rgb + ones input (4 channels);
+        vgg16, not with a fused stem.
+        pad_stem: the input is zero-padded to this many channels (0 = off);
+        vgg16 with the conv stem.
         """
         super().__init__()
-        if (fold_mean or pad_stem) and stem != "conv":
-            raise ValueError("fold_mean and pad_stem are conv-stem only")
+        if (fold_mean or pad_stem) and backbone != "vgg16":
+            raise ValueError("fold_mean and pad_stem support the vgg16 backbone only")
+        if fold_mean and stem in ("fused", "fused2"):
+            raise ValueError("fold_mean + fused stem not supported")
+        if pad_stem and stem != "conv":
+            raise ValueError("pad_stem is conv-stem only")
         self.cfg = cfg
         self.chunk = int(chunk)
         self.fold_mean = bool(fold_mean)
@@ -78,10 +101,9 @@ class TDRN(nn.Module):
         self.temporal_enabled = temporal
         self.arm_guided_sampling = arm_guided_sampling
         self.tcb_channels = tcb_channels
-        w = lambda c: max(8, int(c * width_mult))
-        src_channels = (w(512), w(512), w(1024), w(512))
         in_channels = self.pad_stem or (4 if self.fold_mean else 3)
-        self.backbone = VGG16Reduced(in_channels, width_mult=width_mult, stem=stem)
+        self.backbone = build_backbone(backbone, in_channels, width_mult, stem, backbone_norm)
+        src_channels = self.backbone.out_channels
         self.l2norm0 = L2Norm(src_channels[0], 10.0)
         self.l2norm1 = L2Norm(src_channels[1], 8.0)
         self.arm = MultiBoxHead(2, cfg.anchors_per_cell, src_channels)
@@ -162,24 +184,25 @@ def build_detector(
     arm_guided_sampling: bool = True,
     stem: str = "conv",
     temporal_cell: str = "convgru",
+    backbone_norm: str = "frozen",
     head_dtype: Optional[torch.dtype] = None,
     device=None,
 ) -> TDRN:
     """Build an eval-mode detector on ``device`` (CUDA unless "cpu" is given).
 
-    Ported: the VGG-16 backbone, the conv, fused and fused2 stems, the ConvGRU
-    cell, fp32 and bf16 for ``dtype`` and ``head_dtype``. Everything else
-    raises NotImplementedError.
+    backbone: vgg16 or resnet101; stem (vgg16): conv, s2d, poly, poly2, fused
+    or fused2; backbone_norm (resnet101): frozen or group; temporal_cell:
+    convgru, light or hybrid; dtype and head_dtype: fp32 or bf16 (fp16 is not
+    ported and raises NotImplementedError).
     """
     dev = _build.resolve_device(device)
-    if backbone != "vgg16":
-        raise NotImplementedError(f"backbone {backbone!r} is not ported yet")
     for dt in (dtype, head_dtype or dtype):
         if dt not in DTYPES:
             raise NotImplementedError(f"dtype {dt} is not ported (ported: {DTYPES})")
     model = TDRN(
-        cfg, temporal=temporal, arm_guided_sampling=arm_guided_sampling,
+        cfg, backbone=backbone, temporal=temporal, arm_guided_sampling=arm_guided_sampling,
         tcb_channels=tcb_channels, width_mult=width_mult, stem=stem,
-        temporal_cell=temporal_cell, dtype=dtype, head_dtype=head_dtype,
+        temporal_cell=temporal_cell, backbone_norm=backbone_norm, dtype=dtype,
+        head_dtype=head_dtype,
     )
     return model.to(dev).eval()

@@ -47,9 +47,11 @@ def decode_two_stage(preds: RawPredictions, priors: Tensor, cfg: DetectorConfig)
 
 
 def _prefilter_select(per_anchor: Tensor, cfg: DetectorConfig) -> Tensor:
-    """Indices (B, M) of the prefilter's exact top-M anchors."""
-    if cfg.prefilter_recall < 1.0:
-        raise NotImplementedError("prefilter_recall < 1 is not ported yet")
+    """Indices (B, M) of the prefilter's top-M anchors. The selection is the
+    exact, tie-ordered one whatever ``cfg.prefilter_recall``: a recall
+    below 1 only allows each true top-M anchor to be missed with probability
+    1 - recall (the JAX package's ``lax.approx_max_k``), and keeping every
+    one of them meets that contract."""
     _, idx = N._top_k(per_anchor, cfg.prefilter_anchors, cfg.approx_topk)
     return idx
 

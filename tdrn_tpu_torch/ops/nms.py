@@ -1,7 +1,12 @@
 """Fixed-shape greedy NMS (the port of ``tdrn_tpu/ops/nms.py``).
 
 Candidate selection is a stable descending sort, so equal scores rank lowest
-index first as ``lax.top_k`` does (score fields are full of ties at 0). The
+index first as ``lax.top_k`` does (score fields are full of ties at 0).
+``approx_topk`` selects by the same sort: the JAX package's
+``lax.approx_max_k(recall_target=1.0)`` promises top_k's values, and the
+exact, tie-ordered selection meets that with top_k's indices as well (on
+the CPU the JAX call falls back to the exact top-k, ties lowest index
+first). The
 suppression step is the K2 wrapper (ops/nms_suppress.py), launched once for
 every (image, class) row of a batch. Every function takes any number of
 leading batch dimensions where the JAX one takes a single image.
@@ -35,9 +40,9 @@ class TopDetections(NamedTuple):
 
 
 def _top_k(scores: Tensor, k: int, approx: bool = False):
-    """(values, indices) of the k largest along the last axis, ties lowest index first."""
-    if approx:
-        raise NotImplementedError("approx_topk is not ported yet")
+    """(values, indices) of the k largest along the last axis, ties lowest
+    index first. ``approx`` takes the same exact selection (module doc)."""
+    del approx
     vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
 

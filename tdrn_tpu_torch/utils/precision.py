@@ -58,8 +58,12 @@ def apply_inference_precision(model, precision: str):
 # fourth input channel whose taps are -sum_c k[:, c] * mean[c]:
 # conv(x - m) = conv(x) - conv(m), and the ones channel is zero-padded at the
 # borders exactly like x, so border cells see the partial-tap sum as well.
+# Under the s2d stem the space-to-depth fold interleaves the ones channel
+# with each spatial position ((py, px, c) channel order), so the (3, 3, 4*3,
+# N) kernel maps position by position into (3, 3, 4*4, N).
 # Pad-stem zero-pads conv1_1's input channels (the model feeds zeros there).
-# Both are inference-only, conv-stem only, and keep the kernel's dtype.
+# Both are inference-only and keep the kernel's dtype; fold-mean takes the
+# conv and s2d stems, pad-stem the conv stem only.
 
 _CONV1_1 = "backbone.conv1_1.weight"
 
@@ -72,18 +76,27 @@ def _require_vgg16(model) -> None:
 
 
 def fold_mean_params(state_dict: Dict[str, torch.Tensor], cfg, stem: str = "conv"):
-    """A copy of ``state_dict`` whose conv1_1 weight (O, 3, 3, 3) takes
-    4-channel (rgb + ones) input: (O, 4, 3, 3). The fourth channel is computed
-    in fp32 as the JAX package computes it (same einsum on the HWIO kernel),
-    then cast back to the weight's dtype."""
-    if stem == "s2d":
-        raise NotImplementedError("the s2d stem is not ported yet (ROADMAP.md, queue 1 item 7)")
+    """A copy of ``state_dict`` whose conv1_1 weight takes rgb + ones input:
+    (O, 3, 3, 3) -> (O, 4, 3, 3) under the conv stem, and (O, 12, 3, 3) ->
+    (O, 16, 3, 3) under s2d, where input position p's channels 3p..3p+2 move
+    to 4p..4p+2 and channel 4p+3 takes -sum_c k[3p+c] * mean[c]. The new
+    channels are computed in fp32 as the JAX package computes them (the same
+    einsum on the HWIO kernel), then cast back to the weight's dtype."""
     w = state_dict[_CONV1_1]
-    if w.shape[1] != 3:
-        raise ValueError(f"conv1_1 takes {w.shape[1]} input channels, expected 3")
     k = w.detach().cpu().float().numpy().transpose(2, 3, 1, 0)  # HWIO
     mean = np.asarray(cfg.pixel_means, np.float32)
-    k4 = np.concatenate([k, -np.einsum("hwcn,c->hwn", k, mean)[:, :, None, :]], axis=2)
+    kh, kw, cin, cout = k.shape
+    if stem == "s2d":
+        if cin % 3:
+            raise ValueError(f"conv1_1 takes {cin} input channels, expected a multiple of 3")
+        k4 = np.zeros((kh, kw, cin // 3 * 4, cout), np.float32)
+        for p in range(cin // 3):
+            k4[:, :, 4 * p:4 * p + 3] = k[:, :, 3 * p:3 * p + 3]
+            k4[:, :, 4 * p + 3] = -np.einsum("hwcn,c->hwn", k[:, :, 3 * p:3 * p + 3], mean)
+    else:
+        if cin != 3:
+            raise ValueError(f"conv1_1 takes {cin} input channels, expected 3")
+        k4 = np.concatenate([k, -np.einsum("hwcn,c->hwn", k, mean)[:, :, None, :]], axis=2)
     out = dict(state_dict)
     out[_CONV1_1] = torch.from_numpy(k4.transpose(3, 2, 0, 1).copy()).to(w.dtype)
     return out
@@ -133,7 +146,8 @@ def apply_fold_mean(model):
     folded. vgg16 only, and not with a fused stem; composes with
     ``apply_inference_precision(..., "bf16")`` in either order."""
     _require_vgg16(model)
-    if model.backbone.stem in ("fused", "fused2"):
+    stem = model.backbone.stem
+    if stem in ("fused", "fused2"):
         raise ValueError("fold_mean + fused stem not supported")
-    sd = fold_mean_params(model.state_dict(), model.cfg, model.backbone.stem)
-    return _with_conv1_1(model, 4, sd, fold_mean=True)
+    sd = fold_mean_params(model.state_dict(), model.cfg, stem)
+    return _with_conv1_1(model, sd["backbone.conv1_1.weight"].shape[1], sd, fold_mean=True)

@@ -8,12 +8,16 @@ path joined with "." (leaf ``kernel`` -> ``weight``), and only layouts change:
   deconv  kernel: flax (kH,kW,in,out)  <-> torch (in,out,kH,kW), spatially
           FLIPPED (lax.conv_transpose correlates with the kernel as stored;
           torch's ConvTranspose2d scatters it)
-  scale / bias vectors: unchanged.
+  scale / bias vectors: unchanged (L2Norm, FrozenBN and GroupNorm leaves
+          are all named ``scale`` / ``bias``, as in the JAX tree).
+
+A torchvision ResNet checkpoint loads into the ResNet backbone through
+:func:`load_resnet_backbone` (BatchNorm folded into FrozenBN).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,20 +83,110 @@ def load_jax_params(model: torch.nn.Module, tree) -> torch.nn.Module:
 def load_random_params(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     """Load a seeded numpy draw in the JAX layout into ``model`` through
     :func:`load_jax_params`: xavier-uniform kernels, small normal biases, the
-    L2Norm scales as built. The weights of the benchmarks and smoke runs."""
+    L2Norm scales and the ResNet norms' scales as built, except each
+    residual branch's last norm (bn3), whose scale is uniform in [0.1, 0.3),
+    damped as in trained ResNets: at scale 1 the residual stream of
+    ResNet-101 grows to ~150, and bf16 rounding alone then moves its outputs
+    by 9 % of their max. The weights of the benchmarks and smoke runs."""
     rng = np.random.default_rng(seed)
     tree = params_to_jax(model.state_dict())
 
-    def fill(node):
+    def fill(node, name=""):
         for key, v in node.items():
             if isinstance(v, dict):
-                fill(v)
+                fill(v, key)
             elif key == "kernel":
                 kh, kw, ci, co = v.shape
                 lim = np.sqrt(6.0 / (kh * kw * (ci + co)))
                 node[key] = rng.uniform(-lim, lim, v.shape).astype(np.float32)
             elif key == "bias":
                 node[key] = rng.normal(0.0, 0.01, v.shape).astype(np.float32)
+            elif key == "scale" and name == "bn3":  # a ResNet block's last norm
+                node[key] = rng.uniform(0.1, 0.3, v.shape).astype(np.float32)
 
     fill(tree["params"])
     return load_jax_params(model, tree)
+
+
+# --- torchvision ResNet checkpoints -> the ResNet backbone -----------------
+#
+# torchvision's key layout: conv1 / bn1 / layer{1..4}.{i}.conv{1..3} /
+# layer{1..4}.{i}.bn{1..3} / layer{1..4}.{i}.downsample.{0,1}. Its convs are
+# OIHW like the port's, and bias-free: the port's conv biases are set to 0.
+# Each BatchNorm folds into a FrozenBN affine, in float64:
+# scale = gamma / sqrt(var + eps), bias = beta - mean * scale.
+
+BN_EPS = 1e-5
+
+
+def _fold_bn(sd, prefix: str) -> Tuple[np.ndarray, np.ndarray]:
+    f64 = lambda k: np.asarray(_numpy(sd[f"{prefix}.{k}"]), np.float64)
+    scale = f64("weight") / np.sqrt(f64("running_var") + BN_EPS)
+    bias = f64("bias") - f64("running_mean") * scale
+    return scale.astype(np.float32), bias.astype(np.float32)
+
+
+def _numpy(v) -> np.ndarray:
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def _resnet_torch_prefix(module_path) -> Optional[str]:
+    """A backbone-relative module path, e.g. ("stage2_0", "proj_bn"), -> its
+    torchvision key prefix; None for modules with no pretrained weights
+    (extra1, extra2)."""
+    mod = module_path[0]
+    if mod == "stem":
+        return "conv1"
+    if mod == "stem_bn":
+        return "bn1"
+    if mod.startswith("stage") and len(module_path) > 1:
+        stage, block = mod[len("stage"):].split("_")
+        sub = module_path[1]
+        if sub.startswith(("conv", "bn")):
+            return f"layer{stage}.{block}.{sub}"
+        if sub in ("proj", "proj_bn"):
+            return f"layer{stage}.{block}.downsample.{0 if sub == 'proj' else 1}"
+    return None
+
+
+def resnet_backbone_from_torchvision(sd, template):
+    """Fill a ResNet backbone's state dict from a torchvision ResNet state dict.
+
+    ``template``: the backbone's ``state_dict()`` (keys relative to the
+    backbone, FrozenBN norm). Returns (new state dict of float32 CPU tensors,
+    loaded keys, skipped keys). Every key that maps is checked strictly for
+    its shape; modules with no pretrained weights (extra1, extra2) keep their
+    template values and are listed as skipped."""
+    out, loaded, skipped = {}, [], []
+    for key, value in template.items():
+        path = key.split(".")
+        leaf, prefix = path[-1], _resnet_torch_prefix(path[:-1])
+        if prefix is None:
+            out[key] = value.detach().cpu().float()
+            skipped.append(key)
+            continue
+        if leaf == "weight":  # a conv kernel, OIHW on both sides
+            w = np.asarray(_numpy(sd[f"{prefix}.weight"]), np.float32)
+        elif f"{prefix}.running_mean" not in sd:  # a conv bias
+            w = np.zeros(tuple(value.shape), np.float32)
+        else:  # FrozenBN scale / bias from the folded BatchNorm
+            w = _fold_bn(sd, prefix)[0 if leaf == "scale" else 1]
+        if tuple(w.shape) != tuple(value.shape):
+            raise ValueError(f"{prefix} -> {key}: shape {w.shape} != template {tuple(value.shape)}")
+        out[key] = torch.from_numpy(np.array(w))
+        loaded.append(key)
+    return out, loaded, skipped
+
+
+def load_resnet_backbone(model: torch.nn.Module, source):
+    """Load a torchvision ResNet checkpoint into ``model.backbone`` (a ResNet
+    backbone with FrozenBN norm). ``source``: a state dict, or the path of a
+    file that ``torch.load`` reads (a state dict or {"state_dict": ...}).
+    Returns (model, loaded keys, skipped keys)."""
+    sd = source
+    if not isinstance(source, dict):
+        sd = torch.load(source, map_location="cpu", weights_only=True)
+    sd = sd.get("state_dict", sd)
+    new, loaded, skipped = resnet_backbone_from_torchvision(sd, model.backbone.state_dict())
+    model.backbone.load_state_dict(new, strict=True)
+    return model, loaded, skipped

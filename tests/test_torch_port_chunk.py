@@ -249,8 +249,15 @@ def test_fold_mean_params_match_jax():
     for key in sd:
         assert torch.equal(sd[key], want[key]), key
     assert sd["backbone.conv1_1.weight"].shape[1] == 4
-    with pytest.raises(NotImplementedError):
-        tprec.fold_mean_params(tmodel.state_dict(), tcfg.TINY_64, stem="s2d")
+    # The s2d stem's (O, 12, 3, 3) kernel folds position by position, as the
+    # JAX package folds it.
+    s2d = weights.load_random_params(build_detector(tcfg.TINY_64, stem="s2d", device="cpu", **SMALL), 1)
+    tree = weights.params_to_jax(s2d.state_dict())
+    want = weights.params_from_jax(jprec.fold_mean_params(tree, jcfg.TINY_64, stem="s2d"))
+    got = tprec.fold_mean_params(s2d.state_dict(), tcfg.TINY_64, stem="s2d")
+    assert got.keys() == want.keys() and got["backbone.conv1_1.weight"].shape[1] == 16
+    for key in got:
+        assert torch.equal(got[key], want[key]), key
 
 
 def test_pad_stem_params_match_jax():

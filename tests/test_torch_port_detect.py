@@ -91,9 +91,16 @@ def test_prefilter_overflow_both_ways():
 
 
 def test_unported_selection_raises():
-    cfg = tcfg.TINY_64
-    preds = TD.RawPredictions(*map(torch.from_numpy, _raw(cfg, 1, seed=0)))
-    pri = prior_boxes(cfg, "cpu")
-    for bad in (dict(approx_topk=True), dict(prefilter_anchors=64, prefilter_recall=0.9)):
-        with pytest.raises(NotImplementedError):
-            TD.detect(preds, pri, dataclasses.replace(cfg, **bad))
+    """approx_topk and prefilter_recall < 1, once refused, now run and equal
+    the JAX package's detect on the same predictions: the port selects
+    exactly, and on the CPU so does approx_max_k (tests/test_torch_port_ssd.py)."""
+    tc, jc = tcfg.TINY_64, jcfg.TINY_64
+    raw = _raw(tc, 1, seed=0)
+    tpreds = TD.RawPredictions(*map(torch.from_numpy, raw))
+    jpreds = JD.RawPredictions(*map(jnp.asarray, raw))
+    for opt in (dict(approx_topk=True), dict(prefilter_anchors=64, prefilter_recall=0.9)):
+        t, j = dataclasses.replace(tc, **opt), dataclasses.replace(jc, **opt)
+        got = TD.detect(tpreds, prior_boxes(t, "cpu"), t).numpy()
+        ref = np.asarray(JD.detect(jpreds, j_prior_boxes(j), j))
+        np.testing.assert_array_equal(got[..., 0] > 0, ref[..., 0] > 0)
+        np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)

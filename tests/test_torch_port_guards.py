@@ -2,7 +2,8 @@
 tdrn_tpu (its package, bench_torch.py and tools/device_bench_torch.py); its
 entry points refuse to run on a CUDA-less machine unless asked for the CPU;
 the streaming step's path holds no host sync, which would break its CUDA
-graph capture; chunk, fold-mean and pad-stem no longer raise; its kernel
+graph capture; chunk, fold-mean, pad-stem and every backbone, norm, stem,
+cell and selection option of the JAX package no longer raise; its kernel
 wrappers reject what their kernels do not take and never hand a non-CPU
 tensor to the plain version; the ctypes signatures match the CUDA sources'
 entry points."""
@@ -106,19 +107,26 @@ def test_step_path_has_no_host_sync():
 
 
 def test_chunk_fold_mean_and_pad_stem_are_ported():
-    """No NotImplementedError is left for them, in the source or in a call."""
+    """No NotImplementedError is left for them, nor for a stem, cell,
+    backbone, norm or selection option, in the source or in a call."""
     from tdrn_tpu_torch.inference import StreamingDetector
     from tdrn_tpu_torch.models.detector import build_detector
     from tdrn_tpu_torch.utils.precision import apply_fold_mean, apply_pad_stem
 
-    for rel in ("inference.py", "models/detector.py", "utils/precision.py", "ops/preprocess.py"):
-        with open(os.path.join(PKG, rel)) as fh:
-            src = fh.read()
-        for m in re.finditer(r"NotImplementedError\(([^)]*)\)", src):
-            assert not re.search(r"chunk|fold|pad", m.group(1), re.I), f"{rel}: {m.group(0)}"
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            with open(os.path.join(dirpath, f)) as fh:
+                src = fh.read()
+            for m in re.finditer(r"NotImplementedError\(([^)]*)\)", src):
+                assert not re.search(r"chunk|fold|pad|stem|cell|backbone|norm|approx|recall",
+                                     m.group(1), re.I), f"{f}: {m.group(0)}"
     model = build_detector(TINY_64, width_mult=0.125, tcb_channels=32, device="cpu")
     assert StreamingDetector(model, chunk=2, device="cpu").model.chunk == 2
     assert apply_fold_mean(model).fold_mean and apply_pad_stem(model, 8).pad_stem == 8
+    s2d = build_detector(TINY_64, stem="s2d", width_mult=0.125, tcb_channels=32, device="cpu")
+    assert apply_fold_mean(s2d).backbone.conv1_1.in_channels == 16
 
 
 _EXTERN_C = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)')
@@ -175,18 +183,33 @@ def test_entry_points_refuse_without_cuda():
 
 
 def test_unported_options_raise():
+    """fp16 is not ported and raises; every combination the JAX package's
+    build_detector builds (backbone, norm, stem, cell) builds and detects,
+    with approx_topk and prefilter_recall < 1 on."""
     from tdrn_tpu_torch.inference import StreamingDetector
     from tdrn_tpu_torch.models.detector import build_detector
 
     small = dict(width_mult=0.125, tcb_channels=32, device="cpu")
-    for kw in (dict(stem="s2d"), dict(dtype=torch.float16), dict(temporal_cell="light"),
-               dict(backbone="resnet101"), dict(head_dtype=torch.float16)):
+    for kw in (dict(dtype=torch.float16), dict(head_dtype=torch.float16)):
         with pytest.raises(NotImplementedError):
             build_detector(TINY_64, **kw, **small)
-    approx = dataclasses.replace(TINY_64, approx_topk=True)
-    det = StreamingDetector(build_detector(approx, **small), device="cpu")
-    with pytest.raises(NotImplementedError):
-        det.detect(np.zeros((1, 64, 64, 3), np.uint8))
+    cfg = dataclasses.replace(TINY_64, approx_topk=True, prefilter_anchors=64,
+                              prefilter_recall=0.9, fused_cascade=True)
+    combos = [dict(backbone="vgg16", stem=s) for s in
+              ("conv", "s2d", "poly", "poly2", "fused", "fused2")]
+    combos += [dict(backbone="resnet101", backbone_norm=n, width_mult=0.0625)
+               for n in ("frozen", "group")]
+    frames = np.random.default_rng(0).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    for kw in combos:
+        for cell in ("convgru", "light", "hybrid"):
+            model = build_detector(cfg, temporal_cell=cell, **{**small, **kw})
+            det = StreamingDetector(model, num_streams=2, device="cpu").detect(frames)
+            assert det.scores.shape == (2, cfg.top_k) and bool(torch.isfinite(det.boxes).all())
+            assert det.prefilter_overflow is not None
+    for bad in (dict(backbone="resnet50"), dict(stem="s4d"), dict(temporal_cell="lstm"),
+                dict(backbone="resnet101", backbone_norm="batch")):
+        with pytest.raises(ValueError):
+            build_detector(TINY_64, **{**small, **bad})
 
 
 def _preds(p=255, c=4, b=1):

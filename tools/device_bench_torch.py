@@ -13,6 +13,8 @@ N steps are timed by CUDA events around the whole run; the best of
     python3 tools/device_bench_torch.py --batch 16 --stem fused2 --bf16_weights \
         --fused_cascade --prefilter 512 --chunk 2
     python3 tools/device_bench_torch.py --batch 1 --no_detect   # model-only ablation
+    python3 tools/device_bench_torch.py --batch 16 --backbone resnet101 --config vid_512 \
+        --bf16_weights --fused_cascade --prefilter 512
 
 Prints one JSON line; ``device`` is the card's name and power limit as
 nvidia-smi reports them. The weights are a seeded random draw
@@ -22,7 +24,6 @@ nvidia-smi reports them. The weights are a seeded random draw
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import sys
@@ -32,11 +33,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import torch
 
-from bench_torch import card_line, refuse_unported
-from tdrn_tpu_torch import weights
-from tdrn_tpu_torch.config import get_config
+from bench_torch import add_selection_args, build_model, card_line, refuse_unported
 from tdrn_tpu_torch.inference import StreamingDetector, capture
-from tdrn_tpu_torch.models.detector import build_detector
 from tdrn_tpu_torch.ops.preprocess import preprocess_batch
 from tdrn_tpu_torch.utils.precision import (
     apply_fold_mean, apply_inference_precision, apply_pad_stem,
@@ -69,17 +67,12 @@ def parse_args(argv=None):
                     help="fold the preprocess mean-subtract into conv1_1 (conv stem)")
     ap.add_argument("--pad_stem", type=int, default=0,
                     help="zero-pad the stem input and kernel to N channels (conv stem)")
-    ap.add_argument("--prefilter_recall", type=float, default=None,
-                    help="not ported (ROADMAP.md)")
-    ap.add_argument("--approx_topk", action=argparse.BooleanOptionalAction, default=None,
-                    help="not ported (ROADMAP.md)")
+    add_selection_args(ap)
     ap.add_argument("--int8", action="store_true", help="not ported (ROADMAP.md)")
     ap.add_argument("--int8_tcb", action="store_true", help="not ported (ROADMAP.md)")
     ap.add_argument("--int8_gru", action="store_true", help="not ported (ROADMAP.md)")
     args = ap.parse_args(argv)
     refuse_unported(ap, args)
-    if args.approx_topk or args.prefilter_recall is not None:
-        ap.error("--approx_topk and --prefilter_recall are not ported yet (ROADMAP.md, queue 1)")
     if args.chunk < 1:
         ap.error("--chunk must be >= 1")
     return args
@@ -117,12 +110,8 @@ def model_only(model, frames, chunk):
 def main(argv=None):
     args = parse_args(argv)
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(get_config(args.config), fused_cascade=args.fused_cascade,
-                              prefilter_anchors=args.prefilter)
-    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    model = build_detector(cfg, temporal=not args.no_temporal, dtype=dtype, stem=args.stem,
-                           temporal_cell=args.cell, device=dev)
-    model = weights.load_random_params(model, 0)
+    model = build_model(args, dev, temporal=not args.no_temporal)
+    cfg = model.cfg
     if args.fold_mean:
         model = apply_fold_mean(model)
     if args.pad_stem:
@@ -171,6 +160,8 @@ def main(argv=None):
         "detect": not args.no_detect,
         "fused_cascade": args.fused_cascade,
         "prefilter": args.prefilter,
+        "approx_topk": cfg.approx_topk,
+        "prefilter_recall": cfg.prefilter_recall,
         "temporal": not args.no_temporal,
         "frames": args.frames,
         "timed": "model forward" if det is None else "StreamingDetector.detect",
