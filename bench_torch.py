@@ -5,6 +5,7 @@ ResNet-101, at 320 (vid_320) or 512 (vid_512).
     python3 bench_torch.py                        # vid_320, 16 streams, bf16 weights
     python3 bench_torch.py --stem fused2 --frames 200
     python3 bench_torch.py --backbone resnet101 --config vid_512 --fused_cascade
+    python3 bench_torch.py --int8 --int8_tcb --int8_gru --fused_cascade   # int8 serving profile
     python3 bench_torch.py --device cpu --config tiny_64 --frames 2   # CPU smoke only
 
 Prints ONE JSON line with bench.py's fields: {"metric", "value", "unit",
@@ -25,8 +26,12 @@ Metric: frames/s for streaming video at the config's size (320x320 for
 vid_320, 512x512 for vid_512); vs_baseline = frames/s / 20, the reference
 TDRN's real-time claim on a 1080Ti-class GPU. ``--approx_topk`` and
 ``--prefilter_recall`` set the detect tail's selection options, which the
-port meets with its exact selection. On ``--device cpu`` the same loops run
-eagerly on the host clock; those numbers are the CPU's, not a card's.
+port meets with its exact selection. ``--int8`` (with ``--int8_tcb`` and
+``--int8_gru``) puts the int8 serving profile (utils/quantize.py, the K5
+convs) on top of the bf16 weights, calibrated on 8 seeded uint8 frames
+(RandomState(1)) preprocessed into the model's dtype. On ``--device cpu``
+the same loops run eagerly on the host clock; those numbers are the CPU's,
+not a card's.
 """
 
 from __future__ import annotations
@@ -44,7 +49,9 @@ from tdrn_tpu_torch import weights
 from tdrn_tpu_torch.config import get_config
 from tdrn_tpu_torch.inference import StreamingDetector
 from tdrn_tpu_torch.models.detector import build_detector
+from tdrn_tpu_torch.ops.preprocess import preprocess_batch
 from tdrn_tpu_torch.utils.precision import apply_inference_precision
+from tdrn_tpu_torch.utils.quantize import apply_int8_backbone
 
 BASELINE_FPS = 20.0  # reference TDRN real-time claim
 
@@ -75,14 +82,42 @@ def parse_args(argv=None):
     ap.add_argument("--bf16_weights", action=argparse.BooleanOptionalAction, default=True,
                     help="resident-bf16 feature-pyramid weights and carry, fp32 heads "
                          "and detect (utils/precision.py); --no-bf16_weights: fp32")
-    ap.add_argument("--int8", action="store_true", help="not ported (ROADMAP.md)")
-    ap.add_argument("--int8_tcb", action="store_true", help="not ported (ROADMAP.md)")
-    ap.add_argument("--int8_gru", action="store_true", help="not ported (ROADMAP.md)")
+    add_int8_args(ap)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cpu runs the plain versions eagerly, for tests only")
     args = ap.parse_args(argv)
-    refuse_unported(ap, args)
+    check_int8_args(ap, args)
     return args
+
+
+def add_int8_args(ap):
+    """The int8 serving profile's flags (utils/quantize.py)."""
+    ap.add_argument("--int8", action="store_true",
+                    help="int8 backbone convs (QConv on the K5 kernel), calibrated on 8 "
+                         "seeded random frames: speed only")
+    ap.add_argument("--int8_tcb", action="store_true",
+                    help="with --int8: also quantize the TCB pyramid convs")
+    ap.add_argument("--int8_gru", action="store_true",
+                    help="with --int8: also quantize the temporal-cell convs")
+
+
+def check_int8_args(ap, args):
+    """--int8_tcb and --int8_gru need --int8 (argparse error otherwise)."""
+    if (args.int8_tcb or args.int8_gru) and not args.int8:
+        ap.error("--int8_tcb/--int8_gru require --int8")
+
+
+def apply_int8(args, model, frames: int = 8):
+    """With --int8: the model quantized on `frames` seeded uint8 frames
+    (RandomState(1)) preprocessed into its dtype, as bench.py calibrates."""
+    if not args.int8:
+        return model
+    size = model.cfg.size
+    dev = next(model.parameters()).device
+    calib = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 255, (frames, size, size, 3), dtype=np.uint8)).to(dev)
+    calib = preprocess_batch(calib, model.cfg, model.dtype, model.fold_mean)
+    return apply_int8_backbone(model, calib, tcb=args.int8_tcb, gru=args.int8_gru)
 
 
 def add_selection_args(ap):
@@ -91,12 +126,6 @@ def add_selection_args(ap):
                     help="cfg.approx_topk (the port selects exactly either way)")
     ap.add_argument("--prefilter_recall", type=float, default=None,
                     help="cfg.prefilter_recall of the prefilter's selection (exact in the port)")
-
-
-def refuse_unported(ap, args):
-    """Exit with an error naming ROADMAP.md on an option the port lacks."""
-    if args.int8 or args.int8_tcb or args.int8_gru:
-        ap.error("--int8, --int8_tcb and --int8_gru are not ported yet (ROADMAP.md, queue 1)")
 
 
 def selected_config(args):
@@ -124,6 +153,7 @@ def main(argv=None):
     cfg = model.cfg
     if args.bf16_weights:
         model = apply_inference_precision(model, "bf16")
+    model = apply_int8(args, model)
     det = StreamingDetector(model, num_streams=args.batch, device=args.device)
     dev = det.device
     frames = torch.from_numpy(np.random.RandomState(0).randint(

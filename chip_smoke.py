@@ -6,13 +6,15 @@
                                      # graphed streaming steps (cuDNN TF32 on) of the
                                      # ResNet-101 vid_512 path to
                                      # chiprun_out/profile_resnet101_512.txt, of the
-                                     # fp32 path to chiprun_out/profile.txt and of the
+                                     # fp32 path to chiprun_out/profile.txt, of the
                                      # bf16 serving path to chiprun_out/profile_bf16.txt,
-                                     # and of three eager bf16 steps to
-                                     # chiprun_out/profile_bf16_eager.txt
+                                     # of three eager bf16 steps to
+                                     # chiprun_out/profile_bf16_eager.txt, and of the
+                                     # int8 paths to chiprun_out/profile_int8.txt
+                                     # (VID_320) and profile_int8_resnet101_512.txt
 
 1. Prints the card (nvidia-smi name and power limit) and the torch / CUDA versions.
-2. Builds the four kernels from tdrn_tpu_torch/csrc/*.cu with nvcc for sm_90a,
+2. Builds the five kernels from tdrn_tpu_torch/csrc/*.cu with nvcc for sm_90a,
    one nvcc per source, all at once, into build/tdrn_tpu_torch/.
 3. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (B=16, vid_320) and at a chunk-2 step's (B=32; K2 at
@@ -109,7 +111,34 @@
    (light, hybrid) at vid_320 in the resident-bf16 profile, S=4: 4 graphed
    steps against eager with a reset and an inactive lane, the launch
    counts, and K1 and K2 once a replayed step.
-9. Prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+8b. The int8 serving profile (utils/quantize.py, QConv on K5), each model
+   the seeded random one in the resident-bf16 profile, calibrated with tcb
+   and gru on 8 seeded frames (RandomState(1)) and quantized:
+   - the int8 profile's main path, VID_320 VGG-16 (conv stem, fused cascade,
+     ConvGRU; 37 QConvs) behind InferenceServer with 16 clients x 8 frames,
+     with serving path 5's checks; K5 launched once a QConv in each warm-up
+     and capture, K3/K4 never;
+   - ResNet-101 at vid_512 (126 QConvs), S=16, and s2d + light and hybrid at
+     vid_320, S=4: graphed against eager over 4 steps with a reset and an
+     inactive lane, the launch counts;
+   - on each: one frame's raw predictions against a copy of the model on the
+     CPU (the plain versions) within 5e-2 of max|ref|, and the PTQ deviation
+     against the same model's bf16 profile (logged); K1, K2 and K5 counted
+     a replayed step by the profiler (K5 once a QConv);
+   - K5 against its plain version, bit-equal in bf16 and fp32 output, on
+     every distinct conv shape of those paths, on ragged shapes (B=2, 44x52,
+     Cin 3 and 12, Cout 24) and on all +-127 operands; each distinct shape
+     timed with its bound at 1,979 TOP/s int8 or 3.35 TB/s, TOP/s, the plain
+     version's time, torch._int_mm on the same operands for 1x1 stride-1
+     shapes (library_ms; its int32 accumulators must equal the plain
+     version's) and cuDNN's bf16 conv for the others (a yardstick); the sum
+     over each path's step;
+   - timed: the VID_320 int8 step and the same model's bf16 step (graphed
+     and eager), the ResNet-101 vid_512 int8 step, and the server on the
+     VID_320 int8 model.
+9. Prints {"kernels": [...]} (K5's entry holds the VID_320 int8 step's sum
+   and each path's; its per-shape rows go to chiprun_out/k5_shapes.json)
+   and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises; there is no fallback to the CPU. It imports nothing
 of JAX or of the JAX package tdrn_tpu. TF32 is off for every check, so the
@@ -120,6 +149,7 @@ timed with TF32 off and again with cuDNN's default (TF32 on).
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -132,9 +162,11 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# Published H100 SXM peaks (dense): HBM bytes/s, bf16 and fp32 (non-tensor) FLOP/s.
+# Published H100 SXM peaks (dense): HBM bytes/s, bf16 FLOP/s, int8 OP/s and
+# fp32 (non-tensor) FLOP/s.
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 PEAK_FP32 = 67e12
 
 SEED = 0
@@ -606,21 +638,24 @@ KERNEL_NAMES = {
     "suppress_sorted": ("nms_rows_kernel", "nms_block_kernel"),
     "fused_stem_stage1": ("stem_tc_kernel", "stem_kernel"),
     "fused_conv_stage": ("conv_stage_kernel",),
+    "qconv": ("qconv_kernel",),
 }
 
 
-def read_launches(counters, det, what):
+def read_launches(counters, det, what, per_step=None):
     """The wrappers' counts since they were set to 0. A wrapper counts where it
     launches its kernel, which on the card happens in the eager warm-up step
     before each capture and in the capture; a replay calls no wrapper. So
-    each kernel of the path must count twice a capture."""
+    each kernel of the path must count twice a capture, times its launches a
+    step: per_step[name], 1 where not given (K5 runs once a QConv)."""
     launches = {c.__name__: c.launches for c in counters}
     log(f"  {what}: launches {launches}; {det.captures} captures (each after one warm-up "
         f"step), {det.replays} replays")
     check(det.captures >= 1, f"{what}: no capture")
     for name, n in launches.items():
-        check(n == 2 * det.captures, f"{what}: {name} launched {n} times, expected once in "
-                                     f"each warm-up and once in each capture ({2 * det.captures})")
+        want = 2 * det.captures * (per_step or {}).get(name, 1)
+        check(n == want, f"{what}: {name} launched {n} times, expected {want}: its launches "
+                         f"a step in each warm-up and in each capture")
     return launches
 
 
@@ -830,12 +865,12 @@ def profile_step(torch, step, out_name, steps=3):
     log("\n".join(lines[:25]))
 
 
-def replayed_kernel_counts(torch, make_det, frames, wrappers, what, steps=3):
+def replayed_kernel_counts(torch, make_det, frames, wrappers, what, steps=3, per_step=None):
     """From a detector's construction on, under torch.profiler: its warm-up,
     its capture and `steps` replays. Counts each wrapper's device kernel
-    events by name and checks that each kernel ran once in the warm-up and
-    once in every replayed step (a capture runs nothing). Returns the kernel
-    runs a replayed step, by wrapper."""
+    events by name and checks that each kernel ran per_step[name] times (1
+    where not given) in the warm-up and in every replayed step (a capture
+    runs nothing). Returns the kernel runs a replayed step, by wrapper."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -851,14 +886,14 @@ def replayed_kernel_counts(torch, make_det, frames, wrappers, what, steps=3):
         for w in wrappers:
             if any(name in e.key for name in KERNEL_NAMES[w]):
                 counts[w] += e.count
-    per_step = {w: (n - det.captures) / det.replays for w, n in counts.items()}
+    runs = {w: n / (det.captures + det.replays) for w, n in counts.items()}
     log(f"  {what}: kernel events over {det.captures} warm-up and {det.replays} replayed steps "
-        f"{counts}; a replayed step runs {per_step}")
+        f"{counts}; a replayed step runs {runs}")
     for w, n in counts.items():
-        check(n == det.captures + det.replays,
-              f"{what}: {w}'s kernel ran {n} times, expected once in the warm-up and once a "
-              f"replayed step ({det.captures + det.replays})")
-    return per_step
+        want = (det.captures + det.replays) * (per_step or {}).get(w, 1)
+        check(n == want, f"{what}: {w}'s kernel ran {n} times, expected {want}: its runs a "
+                         f"step in the warm-up and in each replayed step")
+    return runs
 
 
 # --- serving path: resident bf16 behind InferenceServer ----------------------
@@ -904,13 +939,15 @@ def serve_clients(server, frames, reset=None):
     return results
 
 
-def serving_path(torch, counters):
+def serving_path(torch, counters, model, what="bf16 serving path", per_step=None):
+    """model behind InferenceServer (16 clients x 8 frames, a reset): launch
+    counts (read_launches with per_step), each stream against a sequential
+    detector, graphed against eager, finiteness, a bf16 carry, and one
+    frame's raw predictions against a copy of the model on the CPU (its
+    plain versions) within BF16_REL_TOL of max|ref|."""
     from tdrn_tpu_torch.inference import StreamingDetector
-    from tdrn_tpu_torch.models.detector import build_detector
     from tdrn_tpu_torch.serving import InferenceServer
-    from tdrn_tpu_torch.utils.precision import apply_inference_precision
 
-    model = serving_model(torch)
     cfg = model.cfg
     steps, reset = 8, (5, 4)
     rng = np.random.default_rng(SEED + 3)
@@ -924,7 +961,7 @@ def serving_path(torch, counters):
         torch.cuda.synchronize()
     finally:
         server.close()
-    launches = read_launches(counters, det, f"serving path, {server.steps} server steps")
+    launches = read_launches(counters, det, f"{what}, {server.steps} server steps", per_step)
     log(f"  serving: {server.frames} frames in {server.steps} server steps, "
         f"prefilter overflow frames {server.overflow_frames}")
     check(server.frames == steps * STREAMS, f"server ran {server.frames} frames")
@@ -963,17 +1000,20 @@ def serving_path(torch, counters):
     g_reset, g_inactive = (1, 5), (2, 3)
     outs, states = run_graphed(torch, ref, frames[:4], g_reset, g_inactive)
     held = graphed_vs_eager(torch, ref, frames[:4], outs, states, state0, g_reset, g_inactive,
-                            "bf16 serving path")
+                            what)
+    rel = cpu_rel_err(torch, model, torch.tensor(frames[0, :1]), what)
+    return launches, held, rel
 
-    # One frame's raw predictions against the port's CPU plain path in bf16.
-    cpu_model = apply_inference_precision(build_detector(cfg, stem="fused2", device="cpu"), "bf16")
-    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+
+def cpu_rel_err(torch, model, img, what):
+    """One frame's raw predictions on the card against a copy of the same
+    model on the CPU (its plain versions), held at BF16_REL_TOL of max|ref|."""
     t0 = time.perf_counter()
-    rel = raw_rel_err(torch, model, cpu_model, torch.tensor(frames[0, :1]))
-    log(f"  one frame vs CPU plain path, bf16 raw predictions: max rel err {rel:.3g} "
-        f"of max|ref| ({time.perf_counter() - t0:.1f} s)")
-    check(rel < BF16_REL_TOL, f"bf16 card predictions differ from the CPU by {rel} of max|ref|")
-    return model, launches, held
+    rel = raw_rel_err(torch, model, copy.deepcopy(model).cpu(), img)
+    log(f"  {what}: one frame vs CPU plain path, bf16 raw predictions: max rel err {rel:.3g} "
+        f"of max|ref| (bound {BF16_REL_TOL}; {time.perf_counter() - t0:.1f} s)")
+    check(rel < BF16_REL_TOL, f"{what}: card predictions differ from the CPU by {rel} of max|ref|")
+    return rel
 
 
 def matched_share(got, ref, score_tol, box_tol):
@@ -1201,16 +1241,12 @@ def kernels_512(torch, rng, results, card):
 K12 = ("fused_refine_cascade", "suppress_sorted")
 
 
-def check_path_launches(counters, det, what):
-    """K1 and K2 launched once in each warm-up and each capture, K3 and K4
-    never (no path here runs a fused stem)."""
-    k12 = [c for c in counters if c.__name__ in K12]
-    launches = read_launches(k12, det, what)
-    for c in counters:
-        if c.__name__ not in K12:
-            check(c.launches == 0, f"{what}: {c.__name__} launched {c.launches} times")
-            launches[c.__name__] = 0
-    return launches
+def check_path_launches(counters, det, what, per_step=None):
+    """K1 and K2 launched once a step in each warm-up and each capture, the
+    other wrappers as per_step says, and never where it does not name them
+    (no path here runs a fused stem)."""
+    per = {c.__name__: int(c.__name__ in K12) for c in counters}
+    return read_launches(counters, det, what, {**per, **(per_step or {})})
 
 
 def check_stream(torch, det, outs, what):
@@ -1224,9 +1260,11 @@ def check_stream(torch, det, outs, what):
     check(all(bool(torch.isfinite(t).all()) for t in det.state), f"{what}: non-finite state")
 
 
-def drive_graphed(torch, counters, model, frames, reset, inactive, what, prefilter=512):
-    """A detector of model over frames (steps, S, H, W, 3): launch counts,
-    one replay a step, shapes and finiteness, graphed against eager."""
+def drive_graphed(torch, counters, model, frames, reset, inactive, what, prefilter=512,
+                  per_step=None):
+    """A detector of model over frames (steps, S, H, W, 3): launch counts
+    (check_path_launches), one replay a step, shapes and finiteness, graphed
+    against eager."""
     from tdrn_tpu_torch.inference import StreamingDetector
 
     for c in counters:
@@ -1235,7 +1273,7 @@ def drive_graphed(torch, counters, model, frames, reset, inactive, what, prefilt
     state0 = [t.clone() for t in det.state]
     outs, states = run_graphed(torch, det, frames, reset, inactive)
     torch.cuda.synchronize()
-    launches = check_path_launches(counters, det, f"{what}, {frames.shape[0]} steps")
+    launches = check_path_launches(counters, det, f"{what}, {frames.shape[0]} steps", per_step)
     check(det.replays == frames.shape[0], f"{what}: {det.replays} replays")
     check_stream(torch, det, outs, what)
     held = graphed_vs_eager(torch, det, frames, outs, states, state0, reset, inactive, what)
@@ -1397,6 +1435,267 @@ def ssd_path(torch, counters, card):
     return launches, dict(rel_err=rel, ms_b1=times[1], ms_b8=times[8])
 
 
+
+# --- the int8 serving profile: K5 and the int8 paths --------------------------
+
+K5_COUNTS = {"fused_stem_stage1": 0, "fused_conv_stage": 0}  # no fused stem on an int8 path
+
+
+def int8_model(torch, cfg, **build):
+    """The seeded random model in the resident-bf16 profile and its int8
+    copy: calibrated with tcb and gru on 8 seeded uint8 frames (RandomState(1),
+    as bench.py) preprocessed into bf16, then quantized. Returns (bf16 model,
+    int8 model, its scales)."""
+    from tdrn_tpu_torch.models.detector import build_detector
+    from tdrn_tpu_torch.ops.preprocess import preprocess_batch
+    from tdrn_tpu_torch.utils.precision import apply_inference_precision
+    from tdrn_tpu_torch.utils.quantize import apply_int8_backbone, calibrate_act_scales
+
+    bf16 = apply_inference_precision(random_params(build_detector(cfg, **build), SEED), "bf16")
+    calib = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 255, (8, cfg.size, cfg.size, 3), dtype=np.uint8)).cuda()
+    scales = calibrate_act_scales(bf16, preprocess_batch(calib, cfg, bf16.dtype), tcb=True, gru=True)
+    return bf16, apply_int8_backbone(bf16, act_scales=scales), scales
+
+
+def n_qconvs(model):
+    from tdrn_tpu_torch.models.layers import QConv
+
+    return sum(isinstance(m, QConv) for m in model.modules())
+
+
+def qconv_calls(torch, model, frames_u8):
+    """The K5 calls of one eager forward of model on frames, in call order:
+    (B, H, W, Cin, Cout, k, stride, dilation) each."""
+    from tdrn_tpu_torch.models.layers import QConv
+    from tdrn_tpu_torch.ops.preprocess import preprocess_batch
+
+    calls, handles = [], []
+
+    def hook(mod, inp):
+        b, c, h, w = inp[0].shape
+        calls.append((b, h, w, c, mod.out_channels, mod.kernel_size, mod.stride, mod.dilation))
+
+    for m in model.modules():
+        if isinstance(m, QConv):
+            handles.append(m.register_forward_pre_hook(hook))
+    try:
+        x = preprocess_batch(frames_u8.cuda(), model.cfg, model.dtype)
+        with torch.inference_mode():
+            model(x, model.zero_state(x.shape[0]) if model.temporal_enabled else None)
+    finally:
+        for h in handles:
+            h.remove()
+    return calls
+
+
+def ptq_deviation(torch, int8, bf16, img, what):
+    """One frame's raw predictions of the int8 model against the same model's
+    bf16 profile on the card: max|diff| / max|ref| over the heads, logged only."""
+    from tdrn_tpu_torch.ops.preprocess import preprocess_batch
+
+    def raw(m):
+        with torch.inference_mode():
+            return m(preprocess_batch(img.cuda(), m.cfg, m.dtype), m.zero_state(1))[0]
+
+    dev = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(raw(int8), raw(bf16)))
+    log(f"  {what}: PTQ deviation, int8 against the bf16 profile, raw predictions max|diff| "
+        f"{dev:.3g} of max|ref| (logged only)")
+    return dev
+
+
+def int8_vgg_path(torch, counters):
+    """The int8 profile's main path: VID_320 VGG-16, conv stem, fused cascade, ConvGRU,
+    resident bf16 then int8 with tcb and gru (37 QConvs), behind
+    InferenceServer with 16 clients (serving_path's checks, K5 counted once a
+    QConv, K3/K4 never)."""
+    from tdrn_tpu_torch.config import VID_320
+
+    bf16, model, scales = int8_model(torch, dataclasses.replace(VID_320, fused_cascade=True))
+    nq = n_qconvs(model)
+    log(f"  VID_320 int8: {nq} QConvs, {len(scales)} calibrated scales")
+    check(nq == 37, f"VID_320 int8 has {nq} QConvs, expected 17 + 12 + 8 = 37")
+    launches, held, rel = serving_path(torch, counters, model, "VID_320 int8 serving path",
+                                       {**K5_COUNTS, "qconv": nq})
+    frames = np.random.default_rng(SEED + 12).integers(0, 256, (B, 320, 320, 3), np.uint8)
+    dev = ptq_deviation(torch, model, bf16, torch.tensor(frames[:1]), "VID_320 int8")
+    calls = qconv_calls(torch, model, torch.tensor(frames))
+    return bf16, model, launches, held, dict(rel_err_bf16=rel, ptq_deviation=dev), calls
+
+
+def int8_resnet_path(torch, counters):
+    """ResNet-101 at VID_512 (FrozenBN), resident bf16 then int8 with tcb and
+    gru (106 + 12 + 8 = 126 QConvs), S=16, 4 graphed steps against eager with
+    a reset and an inactive lane, one frame against the CPU."""
+    from tdrn_tpu_torch.config import VID_512
+
+    cfg = dataclasses.replace(VID_512, fused_cascade=True)
+    bf16, model, _ = int8_model(torch, cfg, backbone="resnet101")
+    nq = n_qconvs(model)
+    check(nq == 126, f"ResNet-101 int8 has {nq} QConvs, expected 106 + 12 + 8 = 126")
+    frames = np.random.default_rng(SEED + 13).integers(0, 256, (4, STREAMS, 512, 512, 3), np.uint8)
+    _, launches, held = drive_graphed(torch, counters, model, frames, (2, 5), (3, 7),
+                                      "ResNet-101 vid_512 int8", per_step={"qconv": nq})
+    img = torch.tensor(frames[0, :1])
+    rel = cpu_rel_err(torch, model, img, "ResNet-101 vid_512 int8")
+    dev = ptq_deviation(torch, model, bf16, img, "ResNet-101 vid_512 int8")
+    calls = qconv_calls(torch, model, torch.tensor(frames[0]))
+    return bf16, model, launches, held, dict(rel_err_bf16=rel, ptq_deviation=dev), calls
+
+
+INT8_VARIANTS = {"s2d_light_int8": dict(stem="s2d", temporal_cell="light"),
+                 "hybrid_int8": dict(temporal_cell="hybrid")}
+
+
+def int8_variant_paths(torch, counters, names):
+    """s2d + light and hybrid at VID_320, int8 with tcb and gru, S=4: graphed
+    against eager, launches, K1/K2/K5 a replayed step, one frame against the
+    CPU."""
+    from tdrn_tpu_torch.config import VID_320
+    from tdrn_tpu_torch.inference import StreamingDetector
+
+    cfg = dataclasses.replace(VID_320, fused_cascade=True)
+    frames = np.random.default_rng(SEED + 14).integers(0, 256, (4, 4, 320, 320, 3), np.uint8)
+    launches, runs, held, checks, calls = {}, {}, {}, {}, {}
+    for path, kw in INT8_VARIANTS.items():
+        t0 = time.perf_counter()
+        bf16, model, _ = int8_model(torch, cfg, **kw)
+        nq = n_qconvs(model)
+        _, launches[path], held[path] = drive_graphed(torch, counters, model, frames, (2, 1),
+                                                      (3, 2), path, per_step={"qconv": nq})
+        runs[path] = replayed_kernel_counts(
+            torch, lambda: StreamingDetector(model, num_streams=4, prefilter=512),
+            torch.tensor(frames[0]), names, path, per_step={"qconv": nq})
+        img = torch.tensor(frames[0, :1])
+        checks[path] = dict(qconvs=nq, rel_err_bf16=cpu_rel_err(torch, model, img, path),
+                            ptq_deviation=ptq_deviation(torch, model, bf16, img, path))
+        calls[path] = qconv_calls(torch, model, torch.tensor(frames[0]))
+        log(f"  {path}: {nq} QConvs, {time.perf_counter() - t0:.1f} s")
+    return launches, runs, held, checks, calls
+
+
+def _qconv_inputs(torch, rng, b, h, w, cin, cout, k, extreme=False):
+    """Seeded K5 inputs on the card: int8 activations and weights (uniform in
+    [-127, 127], or all +-127 with extreme), the padded channels zero, and
+    realistic fac and bias."""
+    from tdrn_tpu_torch.ops.qconv import padded_channels
+
+    cp = padded_channels(cin)
+    draw = ((lambda shape: np.where(rng.random(shape) < 0.5, 127, -127)) if extreme
+            else (lambda shape: rng.integers(-127, 128, shape)))
+    x, wt = draw((b, h, w, cp)).astype(np.int8), draw((cout, k, k, cp)).astype(np.int8)
+    x[..., cin:] = 0
+    wt[..., cin:] = 0
+    fac = (rng.uniform(0.5, 2.0, cout) * 1e-4).astype(np.float32)
+    bias = rng.normal(0.0, 0.1, cout).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).cuda()
+    return t(x), t(wt), t(fac), t(bias)
+
+
+def _k5_equal(torch, args, s, d, what):
+    """K5 against its plain version in bf16 and fp32 output: bit-equal."""
+    from tdrn_tpu_torch.ops.qconv import qconv, qconv_plain
+
+    for od in (torch.bfloat16, torch.float32):
+        got = qconv(*args, stride=s, dilation=d, out_dtype=od)
+        ref = qconv_plain(*args, s, d, od)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            diff = (got.float() - ref.float()).abs()
+            raise AssertionError(f"K5 {what} {od}: differs from its plain version in "
+                                 f"{int((diff > 0).sum())} of {diff.numel()} outputs, max "
+                                 f"{diff.max().item():.4g}")
+
+
+def phase_qconv(torch, rng, calls_by_path, card):
+    """K5 on every distinct conv shape of the int8 paths, on a ragged shape
+    (B=2, 44x52, Cin 3 and 12, Cout 24) and on all +-127 inputs at the
+    deepest K: bit-equal to its plain version in bf16 and fp32 output. Each
+    distinct shape timed (flushed median of 30) beside its plain version
+    (median of 3), its bound at PEAK_INT8 and, for 1x1 stride-1 shapes,
+    torch._int_mm on the same int8 operands (library_ms; its int32
+    accumulators must equal the plain version's), for the others cuDNN's bf16
+    conv of the same shape (a yardstick only; the port never calls either).
+    Returns K5's kernels-line entry, with the sum over each path's step; the
+    rows of the distinct shapes go to chiprun_out/k5_shapes.json."""
+    import torch.nn.functional as F
+
+    from tdrn_tpu_torch.ops.qconv import conv_out_size, padded_channels, qconv, qconv_plain
+
+    for b, h, w, cin, cout, k, s, d in ((2, 44, 52, 3, 24, 3, 1, 1), (2, 44, 52, 12, 24, 3, 1, 1),
+                                        (2, 44, 52, 3, 24, 7, 2, 1), (2, 44, 52, 12, 24, 1, 2, 1),
+                                        (2, 44, 52, 12, 24, 3, 1, 3)):
+        _k5_equal(torch, _qconv_inputs(torch, rng, b, h, w, cin, cout, k), s, d,
+                  f"ragged {(b, h, w, cin, cout, k, s, d)}")
+    log("  K5 ragged shapes (B=2, 44x52, Cin 3 and 12, Cout 24; 3x3, 7x7/2, 1x1/2, 3x3 dil 3): "
+        "bit-equal in bf16 and fp32")
+    for shape in ((B, 40, 40, 512, 512, 3, 1, 1), (B, 10, 10, 1024, 1024, 1, 1, 1)):
+        b, h, w, cin, cout, k, s, d = shape
+        _k5_equal(torch, _qconv_inputs(torch, rng, b, h, w, cin, cout, k, extreme=True), s, d,
+                  f"all +-127 {shape}")
+    log("  K5 all +-127 inputs and weights (|acc| up to 127^2 x 4608): bit-equal")
+
+    rows = {}
+    for shape in sorted({c for calls in calls_by_path.values() for c in calls}):
+        b, h, w, cin, cout, k, s, d = shape
+        args = _qconv_inputs(torch, rng, b, h, w, cin, cout, k)
+        _k5_equal(torch, args, s, d, str(shape))
+        x, wt = args[0], args[1]
+        cp = padded_channels(cin)
+        ho, wo = conv_out_size(h, k, s, d), conv_out_size(w, k, s, d)
+        ops = 2 * b * ho * wo * cout * k * k * cp
+        nbytes = x.numel() + wt.numel() + 8 * cout + 2 * b * ho * wo * cout
+        bms, by = bound(nbytes, ops, PEAK_INT8)
+        ms = time_ms(torch, lambda: qconv(*args, stride=s, dilation=d))
+        plain_ms = time_ms(torch, lambda: qconv_plain(*args, s, d), reps=3, warmup=1)
+        row = dict(shape=list(shape), ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   ops=ops, bytes=nbytes, tops=ops / ms / 1e9, library_ms=None,
+                   cudnn_bf16_ms=None)
+        if k == 1 and s == 1:
+            a2, b2 = x.view(-1, cp), wt.view(cout, cp).t()
+            acc = torch._int_mm(a2, b2)
+            ref = (a2.double() @ b2.double()).to(torch.int32)
+            torch.cuda.synchronize()
+            check(torch.equal(acc, ref), f"K5 {shape}: torch._int_mm's int32 accumulators differ "
+                                         f"from the plain version's")
+            row["library_ms"] = time_ms(torch, lambda: torch._int_mm(a2, b2))
+        else:
+            cl = torch.channels_last
+            xb = x.permute(0, 3, 1, 2).bfloat16().contiguous(memory_format=cl)
+            wb = wt.permute(0, 3, 1, 2).bfloat16().contiguous(memory_format=cl)
+            pad = d * (k - 1) // 2
+            row["cudnn_bf16_ms"] = time_ms(torch, lambda: F.conv2d(xb, wb, None, s, pad, d))
+        rows[shape] = row
+        lib = (f"_int_mm {row['library_ms']:.4f} ms" if row["library_ms"] is not None
+               else f"cuDNN bf16 {row['cudnn_bf16_ms']:.4f} ms")
+        log(f"  K5 {shape}: {ms:.4f} ms = {row['tops']:.1f} TOP/s, bound {bms:.4f} ms ({by}, "
+            f"share {bms / ms:.3f}), plain {plain_ms:.3f} ms, {lib} on {card}")
+        del args, x, wt
+
+    steps = {}
+    for path, calls in calls_by_path.items():
+        tot = {key: sum(rows[c][key] for c in calls)
+               for key in ("ms", "plain_ms", "bound_ms", "ops", "bytes")}
+        by_ops = sum(rows[c]["bound_ms"] for c in calls if rows[c]["bound_by"] == "operations")
+        tot["bound_by"] = "operations" if 2 * by_ops >= tot["bound_ms"] else "bytes"
+        tot["launches_a_step"] = len(calls)
+        steps[path] = tot
+        log(f"  K5 over one {path} step ({len(calls)} launches, {tot['ops'] / 1e12:.3f} TOP): "
+            f"{tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms (share "
+            f"{tot['bound_ms'] / tot['ms']:.3f}), plain {tot['plain_ms']:.3f} ms on {card}")
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "k5_shapes.json"), "w") as f:
+        json.dump({"card": card, "shapes": [rows[c] for c in sorted(rows)],
+                   "calls_by_path": {p: [list(c) for c in calls]
+                                     for p, calls in calls_by_path.items()}}, f, indent=1)
+    main = steps["int8_vid320"]
+    return dict(name="qconv", wrapper="qconv", source="tdrn_tpu_torch/csrc/qconv.cu",
+                replaces="tdrn_tpu/models/layers.py:150 (XLA s8 conv)", max_abs_err=0.0,
+                ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], timed="the sum over the VID_320 int8 step's 37 launches",
+                step_totals=steps)
+
+
 def main() -> int:
     import torch
 
@@ -1408,6 +1707,7 @@ def main() -> int:
     from tdrn_tpu_torch.inference import StreamingDetector
     from tdrn_tpu_torch.ops.cascade import fused_refine_cascade
     from tdrn_tpu_torch.ops.nms_suppress import suppress_sorted
+    from tdrn_tpu_torch.ops.qconv import qconv
     from tdrn_tpu_torch.ops.stem import fused_conv_stage, fused_stem_stage1
 
     if os.path.dirname(os.path.abspath(tdrn_tpu_torch.__file__)) != os.path.join(HERE, "tdrn_tpu_torch"):
@@ -1446,7 +1746,15 @@ def main() -> int:
     model, fp32_launches, fp32_held = main_path(torch, counters)
     counters16 = counters + [fused_conv_stage]
     log("serving path (resident bf16, fused2 stem, prefilter 512, InferenceServer), graphed:")
-    model16, launches, bf16_held = serving_path(torch, counters16)
+    model16 = serving_model(torch)
+    launches, bf16_held, _ = serving_path(torch, counters16, model16)
+    counters8 = counters16 + [qconv]
+    t0 = time.perf_counter()
+    log("int8 serving path (VID_320, conv stem, resident bf16 + int8 with tcb and gru, "
+        "prefilter 512, InferenceServer), graphed:")
+    bf16_320, model8, int8_launches, int8_held, int8_checks, calls320 = int8_vgg_path(
+        torch, counters8)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
     log("chunk 2 (2 frames a stream a step), fp32 path and bf16 serving profile:")
     fp32_chunk_launches = chunk_path(torch, counters, model, CHUNK_STATE_ATOL, "fp32 path")
     chunk_launches = chunk_path(torch, counters16, model16, BF16_REL_TOL, "bf16 serving profile")
@@ -1459,6 +1767,10 @@ def main() -> int:
     log("ResNet-101 vid_512 path (resident bf16, fused cascade, prefilter 512), graphed:")
     model_r, resnet_launches, resnet_held, resnet_checks = resnet_path(torch, counters16)
     group_launches, group_held = resnet_group_path(torch, counters16)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    log("ResNet-101 vid_512 int8 path (resident bf16 + int8 with tcb and gru), graphed:")
+    _, model_r8, r8_launches, r8_held, r8_checks, calls512 = int8_resnet_path(torch, counters8)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     log("SSD baseline (VOC_320, full width, fp32):")
@@ -1490,6 +1802,21 @@ def main() -> int:
     log_times("streaming ResNet-101 vid_512 bf16 S=16 512x512 prefilter 512", card,
               resnet_graphed, resnet_eager)
     log_server("bf16 serving path", card, time_server(torch, model16))
+    det8, frames8, *int8_graphed = time_streaming(torch, model8, hw=(320, 320), prefilter=512)
+    int8_eager = time_eager(torch, det8, frames8)
+    log_times("streaming vid_320 int8 (tcb, gru) conv stem S=16 320x320 prefilter 512", card,
+              int8_graphed, int8_eager)
+    det320, _, *conv_graphed = time_streaming(torch, bf16_320, hw=(320, 320), prefilter=512)
+    conv_eager = time_eager(torch, det320, frames8)
+    log_times("streaming vid_320 bf16 conv stem S=16 320x320 prefilter 512 (the same model before "
+              "int8)", card, conv_graphed, conv_eager)
+    del det320
+    det_r8, _, *r8_graphed = time_streaming(torch, model_r8, steps=10, hw=(512, 512),
+                                            prefilter=512)
+    r8_eager = time_eager(torch, det_r8, frames_r, steps=10)
+    log_times("streaming ResNet-101 vid_512 int8 (tcb, gru) S=16 512x512 prefilter 512", card,
+              r8_graphed, r8_eager)
+    log_server("VID_320 int8 serving path", card, time_server(torch, model8))
     log_server("fp32 path at 320x320, prefilter off", card,
                time_server(torch, model, prefilter=None))
 
@@ -1514,38 +1841,65 @@ def main() -> int:
     per_step["resnet101_512"] = replayed_kernel_counts(
         torch, lambda: StreamingDetector(model_r, num_streams=STREAMS, prefilter=512), frames_r,
         list(K12), "ResNet-101 vid_512 bf16")
+    names8 = [c.__name__ for c in counters8]
+    per_step["int8_vid320"] = replayed_kernel_counts(
+        torch, lambda: StreamingDetector(model8, num_streams=STREAMS, prefilter=512), frames8,
+        names8, "VID_320 int8", per_step={**K5_COUNTS, "qconv": len(calls320)})
+    per_step["int8_resnet101_512"] = replayed_kernel_counts(
+        torch, lambda: StreamingDetector(model_r8, num_streams=STREAMS, prefilter=512), frames_r,
+        list(K12) + ["qconv"], "ResNet-101 vid_512 int8", per_step={"qconv": len(calls512)})
     t0 = time.perf_counter()
     log("the other stems and cells at vid_320 (resident bf16, S=4), graphed:")
     variant_launches, variant_steps, variant_held = variant_paths(torch, counters16, list(K12))
     per_step.update(variant_steps)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    log("s2d + light and hybrid at vid_320, int8 with tcb and gru (S=4), graphed:")
+    v8_launches, v8_steps, v8_held, v8_checks, v8_calls = int8_variant_paths(
+        torch, counters8, list(K12) + ["qconv"])
+    per_step.update(v8_steps)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    log("K5 qconv against its plain version, every distinct conv shape of the int8 paths:")
+    k5 = phase_qconv(torch, rng, {"int8_vid320": calls320, "int8_resnet101_512": calls512,
+                                  **v8_calls}, card)
+    results.append(k5)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
     if "--profile" in sys.argv[1:]:
         profile_step(torch, lambda: det_r.detect(frames_r), "profile_resnet101_512.txt")
         profile_step(torch, lambda: det.detect(frames), "profile.txt")
         profile_step(torch, lambda: det16.detect(frames16), "profile_bf16.txt")
         profile_step(torch, eager_step(torch, det16, frames16), "profile_bf16_eager.txt")
+        profile_step(torch, lambda: det8.detect(frames8), "profile_int8.txt")
+        profile_step(torch, lambda: det_r8.detect(frames_r), "profile_int8_resnet101_512.txt")
 
     extra = ("tflops", "cudnn_chain_ms", "ms_fp32_input", "ms_fp32_compute", "ms_warm",
-             "ms_repeats", "ms_per_anchor", "amax_ms", "ms_early", "ms_k1024", "at_512")
+             "ms_repeats", "ms_per_anchor", "amax_ms", "ms_early", "ms_k1024", "at_512",
+             "timed", "step_totals")
     paths = {"resnet101_512": resnet_launches, "resnet101_group_512": group_launches,
-             "ssd_320": ssd_launches, **variant_launches}
+             "ssd_320": ssd_launches, **variant_launches, "int8_vid320": int8_launches,
+             "int8_resnet101_512": r8_launches, **v8_launches}
+    # A kernel's own main path: bf16 serving for K1-K4, the VID_320
+    # int8 path for K5 (its library_ms is per shape, in chiprun_out/k5_shapes.json).
+    own = lambda r: "int8_vid320" if r["wrapper"] == "qconv" else "bf16_serving"
+    paths = {"fp32_fused": fp32_launches, "bf16_serving": launches,
+             "fp32_chunk2": fp32_chunk_launches, "bf16_chunk2": chunk_launches, **paths}
     kernels = [dict(name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"],
-                    launches=launches[r["wrapper"]], max_abs_err=r["max_abs_err"],
+                    launches=paths[own(r)][r["wrapper"]], max_abs_err=r["max_abs_err"],
                     ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=None,
-                    launches_by_path={"fp32_fused": fp32_launches.get(r["wrapper"], 0),
-                                      "bf16_serving": launches[r["wrapper"]],
-                                      "fp32_chunk2": fp32_chunk_launches.get(r["wrapper"], 0),
-                                      "bf16_chunk2": chunk_launches[r["wrapper"]],
-                                      **{path: n.get(r["wrapper"], 0) for path, n in paths.items()}},
-                    runs_per_replayed_step=per_step["bf16_serving"][r["wrapper"]],
+                    launches_by_path={path: n.get(r["wrapper"], 0) for path, n in paths.items()},
+                    runs_per_replayed_step=per_step[own(r)][r["wrapper"]],
                     runs_per_replayed_step_by_path={
                         path: counts.get(r["wrapper"], 0) for path, counts in per_step.items()},
                     **{k: r[k] for k in extra if k in r}) for r in results]
     log(f"graphed vs eager: fp32 path {fp32_held}, bf16 serving path {bf16_held}, ResNet-101 "
         f"vid_512 {resnet_held}, group norm {group_held}, "
-        + ", ".join(f"{path} {h}" for path, h in variant_held.items()))
+        + ", ".join(f"{path} {h}" for path, h in {**variant_held, **v8_held}.items())
+        + f", VID_320 int8 {int8_held}, ResNet-101 vid_512 int8 {r8_held}")
     log(f"checks against the CPU: ResNet-101 {json.dumps(resnet_checks)}, SSD {json.dumps(ssd_checks)}")
+    log(f"int8 paths against the CPU and the bf16 profile: VID_320 {json.dumps(int8_checks)}, "
+        f"ResNet-101 vid_512 {json.dumps(r8_checks)}, {json.dumps(v8_checks)}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

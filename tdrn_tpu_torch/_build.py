@@ -36,7 +36,8 @@ _COMMON = [
 ]
 # Per-source flags. nms_suppress keeps every IoU operation separately rounded
 # (no FMA contraction) so its keep mask is bit-equal to the plain version.
-_EXTRA = {"cascade": [], "nms_suppress": ["-fmad=false"], "stem": [], "conv_stage": []}
+_EXTRA = {"cascade": [], "nms_suppress": ["-fmad=false"], "stem": [], "conv_stage": [],
+          "qconv": []}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each kernel's entry point: (name, argtypes).
@@ -51,6 +52,8 @@ _SIGNATURES = {
     "stem": ("tdrn_stem", [_P] * 6 + [_I] * 9 + [_P]),
     # x, k1, b1, k2, b2, out, B, H, W, Cin, Cmid, Cout, in_bf16, out_bf16, stream
     "conv_stage": ("tdrn_conv_stage", [_P] * 6 + [_I] * 8 + [_P]),
+    # x, w, fac, bias, out, B, H, W, C, Cout, KH, KW, stride, dilation, out_bf16, stream
+    "qconv": ("tdrn_qconv", [_P] * 5 + [_I] * 10 + [_P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

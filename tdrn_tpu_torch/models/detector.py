@@ -14,10 +14,12 @@ carry, and ``head_dtype`` that of the ARM/ODM heads; each module's parameters
 are held in its compute dtype, the L2Norm scales in fp32, and the raw
 predictions are returned in fp32 whatever the heads computed in.
 
-Three inference-only settings mirror the flax fields of the same names:
+Six inference-only settings mirror the flax fields of the same names:
 ``chunk`` (frame-major micro-batching, set by ``clone``), ``fold_mean`` and
 ``pad_stem`` (set by the transforms of utils/precision.py, which also rewrite
-conv1_1).
+conv1_1), and ``quant``, ``quant_tcb`` and ``quant_gru`` (set by
+utils/quantize.apply_int8_backbone, which turns the backbone's, the TCB's
+and the temporal cells' convs into int8 QConvs).
 """
 
 from __future__ import annotations
@@ -93,6 +95,9 @@ class TDRN(nn.Module):
         if pad_stem and stem != "conv":
             raise ValueError("pad_stem is conv-stem only")
         self.cfg = cfg
+        self.backbone_name = backbone
+        self.temporal_cell = temporal_cell
+        self.quant = self.quant_tcb = self.quant_gru = False
         self.chunk = int(chunk)
         self.fold_mean = bool(fold_mean)
         self.pad_stem = int(pad_stem)

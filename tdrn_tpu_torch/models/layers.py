@@ -2,12 +2,18 @@
 
 L2Norm: channel-wise L2 normalization with a learned per-channel scale,
 computed in fp32, applied to the conv4_3 / conv5_3 feature maps.
+
+QConv: the int8 conv of the int8 serving profile (utils/quantize.py), on the
+K5 wrapper (ops/qconv.py).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+
+from tdrn_tpu_torch.ops.qconv import fp32_div, qconv, quantize_act
 
 
 class L2Norm(nn.Module):
@@ -31,3 +37,70 @@ def conv3x3(cin: int, cout: int, stride: int = 1, dilation: int = 1) -> nn.Conv2
 
 def conv1x1(cin: int, cout: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 1)
+
+
+class QConv(nn.Module):
+    """int8-quantized conv (serving only), the port of the JAX package's QConv.
+
+    Buffers, the leaves of the JAX param tree: ``weight`` int8 (Cout, KH, KW,
+    Cin), symmetric per output channel (the JAX ``kernel``, HWIO, transposed
+    so that k is contiguous); ``wscale`` fp32 (Cout), its step max|w| / 127;
+    ``xscale`` fp32 (), the calibrated max|input|; ``bias`` fp32 (Cout). The
+    forward quantizes the input to int8 with the static ``xscale``, runs the
+    s8 x s8 -> s32 conv (K5) and returns ``float(acc) * (wscale * (xscale /
+    127)) + bias`` in ``dtype``, an NCHW (channels_last) view of the kernel's
+    NHWC output. SAME padding ``dilation * (k - 1) // 2``; the zero point is
+    0, so the zero padding stays exact.
+
+    A cast of the module (``module.to(dtype)``, ``.bfloat16()``) leaves every
+    buffer's dtype as it is and moves only the device: the scales and bias
+    stay fp32, as in the JAX package.
+    """
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
+                 dilation: int = 1, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.in_channels, self.out_channels = cin, cout
+        self.kernel_size, self.stride, self.dilation = kernel_size, stride, dilation
+        self.dtype = dtype
+        k = kernel_size
+        self.register_buffer("weight", torch.zeros((cout, k, k, cin), dtype=torch.int8))
+        self.register_buffer("wscale", torch.ones(cout))
+        self.register_buffer("xscale", torch.ones(()))
+        self.register_buffer("bias", torch.zeros(cout))
+
+    @classmethod
+    def like(cls, conv: nn.Conv2d, dtype: torch.dtype) -> "QConv":
+        """A QConv of ``conv``'s geometry (square kernel, SAME padding) on its
+        device, holding the placeholder values (zero weights, unit scales)."""
+        k, s, d = conv.kernel_size[0], conv.stride[0], conv.dilation[0]
+        if conv.kernel_size != (k, k) or conv.padding != (d * (k - 1) // 2,) * 2 or conv.groups != 1:
+            raise ValueError(f"QConv takes square SAME convs, got {conv}")
+        out = cls(conv.in_channels, conv.out_channels, k, s, d, dtype)
+        return out.to(conv.weight.device)
+
+    def _apply(self, fn, recurse=True):
+        def same_dtype(t):
+            out = fn(t)
+            return out if out.dtype == t.dtype else t.to(out.device)
+        return super()._apply(same_dtype, recurse)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xq = quantize_act(x, self.xscale)
+        w = self.weight
+        if w.shape[-1] != xq.shape[-1]:  # the stems' 3 and 12 channels, padded to 16
+            w = F.pad(w, (0, xq.shape[-1] - w.shape[-1]))
+        fac = self.wscale * fp32_div(self.xscale, 127.0)
+        y = qconv(xq, w, fac, self.bias, stride=self.stride, dilation=self.dilation,
+                  out_dtype=self.dtype)
+        return y.permute(0, 3, 1, 2)
+
+    def extra_repr(self) -> str:
+        return (f"{self.in_channels}, {self.out_channels}, kernel_size={self.kernel_size}, "
+                f"stride={self.stride}, dilation={self.dilation}, dtype={self.dtype}")
+
+
+def to_compute_dtype(x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
+    """x in the dtype ``conv`` computes in; a QConv quantizes its input from
+    fp32 itself, so it takes x as it is (as the JAX package's does)."""
+    return x if isinstance(conv, QConv) else x.to(conv.weight.dtype)

@@ -18,6 +18,12 @@ with a bias, then its own norm.
     compute dtype, the result cast back once: flax's ``nn.GroupNorm``.
 The leaves of both norms are named ``scale`` and ``bias``, as the JAX
 param tree names them, so the key rules of weights.py apply unchanged.
+
+The int8 serving profile (utils/quantize.py) turns the stem, every
+bottleneck's conv1/conv2/conv3/proj and extra1/extra2 into QConvs
+(models/layers.py); the norms stay separate passes in the compute dtype, so
+a QConv's output is rounded once by its own cast and again by the norm, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tdrn_tpu_torch.models.layers import conv1x1, conv3x3
+from tdrn_tpu_torch.models.layers import conv1x1, conv3x3, to_compute_dtype
 
 DEPTHS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 NORMS = ("frozen", "group")
@@ -139,7 +145,7 @@ class ResNetBackbone(nn.Module):
         self.out_channels = (4 * w(128), 4 * w(256), 4 * w(512), w(512))
 
     def forward(self, x_nhwc: torch.Tensor) -> List[torch.Tensor]:
-        x = x_nhwc.to(self.stem.weight.dtype).permute(0, 3, 1, 2)
+        x = to_compute_dtype(x_nhwc, self.stem).permute(0, 3, 1, 2)
         x = F.relu(self.stem_bn(self.stem(x)))
         x = F.max_pool2d(x, 3, 2, padding=1)
         sources = []

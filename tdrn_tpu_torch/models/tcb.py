@@ -18,7 +18,11 @@ from tdrn_tpu_torch.models.layers import conv3x3
 
 class TCB(nn.Module):
     """One transfer-connection block. The deepest block gets no deeper input
-    and so has no deconv (as in the JAX module, where it is never created)."""
+    and so has no deconv (as in the JAX module, where it is never created).
+    conv3's input is the post-add ``fused`` tensor that the JAX module sows
+    for the int8 calibration (utils/quantize.py reads it by a forward
+    pre-hook on conv3); under ``quant_tcb`` conv1-3 are QConvs and the
+    deconv stays in the compute dtype."""
 
     def __init__(self, cin: int, channels: int = 256, has_deconv: bool = True):
         super().__init__()

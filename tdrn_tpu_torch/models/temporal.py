@@ -21,6 +21,11 @@ the JAX package): the update gate's bias is 2.0, so z = sigmoid(2) ~ 0.88,
 and the candidate conv is a center-tap identity on the x half of its input
 plus 0.1 x xavier noise, so an untrained cell gives h' ~ tanh(x) at frame 0.
 The draw comes from an explicit ``torch.Generator``.
+
+Under ``quant_gru`` (utils/quantize.py) the ConvGRU's ``gates`` and ``cand``
+and the light cell's ``gate`` and ``cand`` are int8 QConvs; the depthwise
+``dw`` stays in the compute dtype. The int8 calibration reads their inputs
+(``xh``, ``xrh``) by forward pre-hooks and the ``dw`` output by a hook.
 """
 
 from __future__ import annotations

@@ -25,7 +25,10 @@ Stage 1 (conv1_1 + relu + conv1_2 + relu + pool1) has six forms:
   fused2  K3, then stage 2 (conv2_1, conv2_2, pool2) as the K4 wrapper on
           K3's NHWC output.
 
-The convolutions compute in the dtype of the backbone's parameters.
+The convolutions compute in the dtype of the backbone's parameters. The
+int8 serving profile (utils/quantize.py) turns every conv of the chain into
+a QConv (models/layers.py); it takes the conv and s2d stems only, since the
+other stems rearrange or fuse conv1_1's float kernel.
 ``in_channels`` is the model's input channel count: 3, 4 under the
 fold-mean transform (rgb + ones; conv and s2d stems) and the padded count
 under pad-stem (conv stem only; utils/precision.py).
@@ -39,12 +42,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tdrn_tpu_torch.models.layers import conv1x1, conv3x3
+from tdrn_tpu_torch.models.layers import QConv, conv1x1, conv3x3, to_compute_dtype
 from tdrn_tpu_torch.ops.stem import fused_conv_stage, fused_stem_stage1
 
 # (num_convs, channels) per VGG stage.
 _STAGES = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
 STEMS = ("conv", "s2d", "poly", "poly2", "fused", "fused2")
+QUANT_STEMS = ("conv", "s2d")  # the stems an int8 (QConv) backbone takes
 
 
 def _hwio(conv: nn.Conv2d) -> torch.Tensor:
@@ -135,7 +139,9 @@ class VGG16Reduced(nn.Module):
 
     def forward(self, x_nhwc: torch.Tensor) -> List[torch.Tensor]:
         """x: (B, H, W, in_channels) preprocessed frames, NHWC; returns NCHW maps."""
-        x, start_stage = self._stem(x_nhwc.to(self.conv1_1.weight.dtype))
+        if self.quant and self.stem not in QUANT_STEMS:
+            raise ValueError(f"an int8 vgg16 backbone takes the {QUANT_STEMS} stems only")
+        x, start_stage = self._stem(to_compute_dtype(x_nhwc, self.conv1_1))
         sources = []
         for si, (n, _) in enumerate(_STAGES):
             if si < start_stage:
@@ -154,6 +160,11 @@ class VGG16Reduced(nn.Module):
         x = F.relu(self.conv6_2(x))
         sources.append(x)
         return sources
+
+    @property
+    def quant(self) -> bool:
+        """Whether the convs are int8 QConvs (utils/quantize.py)."""
+        return isinstance(self.conv1_1, QConv)
 
     def _stem(self, x_nhwc: torch.Tensor):
         """The stages the stem runs itself: (NCHW map, first stage left to run).

@@ -10,6 +10,9 @@ path joined with "." (leaf ``kernel`` -> ``weight``), and only layouts change:
           torch's ConvTranspose2d scatters it)
   scale / bias vectors: unchanged (L2Norm, FrozenBN and GroupNorm leaves
           are all named ``scale`` / ``bias``, as in the JAX tree).
+  int8 QConv (a node with ``wscale``): kernel int8 HWIO <-> weight int8
+          (O, H, W, I), kept int8; ``wscale``, ``xscale`` (0-dim) and
+          ``bias`` fp32.
 
 A torchvision ResNet checkpoint loads into the ResNet backbone through
 :func:`load_resnet_backbone` (BatchNorm folded into FrozenBN).
@@ -37,12 +40,27 @@ def _torch_key(path) -> str:
     return ".".join(path[:-1] + (suffix,))
 
 
+def _quantized_nodes(tree, prefix=()) -> set:
+    """Paths of the nodes of a JAX tree that are int8 QConvs (hold ``wscale``)."""
+    found = {prefix} if "wscale" in tree else set()
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            found |= _quantized_nodes(v, prefix + (k,))
+    return found
+
+
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     """A JAX param tree (``{"params": ...}`` or bare; leaves array-like) -> the
-    port's ``state_dict`` (float32 CPU tensors)."""
+    port's ``state_dict`` (CPU tensors: float32, and int8 for a QConv's
+    weight)."""
     tree = tree["params"] if "params" in tree else tree
+    quantized = _quantized_nodes(tree)
     out = {}
     for path, leaf in _flatten_tree(tree):
+        if path[-1] == "kernel" and path[:-1] in quantized:
+            v = np.asarray(leaf, np.int8).transpose(3, 0, 1, 2)  # HWIO -> (O, H, W, I)
+            out[_torch_key(path)] = torch.from_numpy(np.ascontiguousarray(v))
+            continue
         v = np.asarray(leaf, np.float32)
         if path[-1] == "kernel":
             if "deconv" in path:
@@ -58,7 +76,12 @@ def params_to_jax(state_dict) -> dict:
     root: dict = {}
     for key, t in state_dict.items():
         path = key.split(".")
-        v = t.detach().cpu().float().numpy()  # bf16 has no numpy dtype
+        t = t.detach().cpu()
+        if t.dtype == torch.int8:  # a QConv's weight, (O, H, W, I) -> HWIO
+            path[-1] = "kernel"
+            v = t.numpy().transpose(1, 2, 3, 0)
+        else:
+            v = t.float().numpy()  # bf16 has no numpy dtype
         if path[-1] == "weight":
             path[-1] = "kernel"
             if "deconv" in path:
@@ -68,7 +91,7 @@ def params_to_jax(state_dict) -> dict:
         node = root
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = np.ascontiguousarray(v)
+        node[path[-1]] = np.array(v, order="C")  # keeps a 0-dim leaf 0-dim
     return {"params": root}
 
 
@@ -87,11 +110,15 @@ def load_random_params(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     residual branch's last norm (bn3), whose scale is uniform in [0.1, 0.3),
     damped as in trained ResNets: at scale 1 the residual stream of
     ResNet-101 grows to ~150, and bf16 rounding alone then moves its outputs
-    by 9 % of their max. The weights of the benchmarks and smoke runs."""
+    by 9 % of their max. An int8 QConv's buffers are left as they are:
+    utils/quantize.apply_int8_backbone derives them from the float weights.
+    The weights of the benchmarks and smoke runs."""
     rng = np.random.default_rng(seed)
     tree = params_to_jax(model.state_dict())
 
     def fill(node, name=""):
+        if "wscale" in node:  # an int8 QConv
+            return
         for key, v in node.items():
             if isinstance(v, dict):
                 fill(v, key)

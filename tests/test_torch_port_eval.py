@@ -210,14 +210,22 @@ def test_bench_torch_prints_bench_fields():
 
 @pytest.mark.parametrize("flags", [["--int8"], ["--int8_tcb"], ["--int8_gru"]])
 def test_bench_scripts_refuse_unported_options(flags, capsys):
-    """int8 serving is not ported yet: both scripts exit naming ROADMAP.md."""
+    """int8 serving is ported: --int8 parses in both scripts, and they refuse
+    --int8_tcb or --int8_gru without --int8 (an argparse error naming
+    --int8), as bench.py and tools/device_bench.py do."""
     import bench_torch
     from tools import device_bench_torch
 
     for parse in (bench_torch.parse_args, device_bench_torch.parse_args):
+        if flags == ["--int8"]:
+            args = parse(flags)
+            assert args.int8 and not args.int8_tcb and not args.int8_gru
+            assert parse(["--int8", flags[0] + "_tcb", "--int8_gru"]).int8_tcb
+            continue
         with pytest.raises(SystemExit):
             parse(flags)
-        assert "ROADMAP.md" in capsys.readouterr().err
+        assert "require --int8" in capsys.readouterr().err
+        assert getattr(parse(["--int8"] + flags), flags[0][2:])
 
 
 @pytest.mark.parametrize("flags", [

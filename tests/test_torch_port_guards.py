@@ -24,6 +24,7 @@ from tdrn_tpu_torch.config import TINY_64
 from tdrn_tpu_torch.ops.cascade import fused_refine_cascade
 from tdrn_tpu_torch.ops.detection import RawPredictions
 from tdrn_tpu_torch.ops.nms_suppress import suppress_sorted
+from tdrn_tpu_torch.ops.qconv import qconv
 from tdrn_tpu_torch.ops.stem import fused_conv_stage, fused_stem_stage1
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -96,6 +97,8 @@ def _step_path_sources():
 def test_step_path_has_no_host_sync():
     paths = list(_step_path_sources())
     assert len(paths) > 10
+    for module in ("ops/qconv.py", "models/layers.py"):  # the int8 profile's step path
+        assert os.path.join(PKG, module) in paths, module
     for path in paths:
         with open(path) as fh:
             for n, line in enumerate(fh, 1):
@@ -155,7 +158,8 @@ def test_entry_point_signatures_match_the_sources():
                 for fn, params in _EXTERN_C.findall(fh.read()):
                     kinds = [_CTYPE[_param_kind(p)] for p in params.split(",")]
                     found[fn] = (f[:-3], kinds)
-    assert len(found) == len(_build._SIGNATURES) == 4
+    assert len(found) == len(_build._SIGNATURES) == 5
+    assert _build._SIGNATURES["qconv"][0] == "tdrn_qconv"
     for name, (fn, argtypes) in _build._SIGNATURES.items():
         assert fn in found, f"{name}: no extern \"C\" {fn} in csrc/"
         src, kinds = found[fn]
@@ -280,3 +284,34 @@ def _rejects_bad_input(wrapper, cout):
     ]:
         with pytest.raises((TypeError, ValueError)):
             wrapper(*args, **kw)
+
+
+def test_qconv_wrapper_rejects_bad_input():
+    """K5's wrapper: dtypes, shapes, layout, channel padding, stride and
+    dilation, the output dtype and a device with no kernel or plain version;
+    an even Cout and 16-byte alignment are the kernel's own, checked on the
+    card only."""
+    x = torch.zeros(1, 6, 7, 16, dtype=torch.int8)
+    w = torch.zeros(8, 3, 3, 16, dtype=torch.int8)
+    fac, bias = torch.ones(8), torch.zeros(8)
+    assert qconv(x, w, fac, bias).shape == (1, 6, 7, 8)
+    assert qconv(x, w, fac, bias, stride=2, out_dtype=torch.float32).shape == (1, 3, 4, 8)
+    for args, kw in [
+        ((x.float(), w, fac, bias), {}),
+        ((x, w.float(), fac, bias), {}),
+        ((x, w, fac.double(), bias), {}),
+        ((x, w, fac, bias.bfloat16()), {}),
+        ((x[0], w, fac, bias), {}),
+        ((x, w[:, :, :, :8], fac, bias), {}),
+        ((x[..., :12], w[..., :12], fac, bias), {}),  # channels not padded to 16
+        ((torch.zeros(1, 16, 6, 7, dtype=torch.int8).permute(0, 2, 3, 1), w, fac, bias), {}),
+        ((x, w, fac[:4], bias), {}),
+        ((x, w, fac, bias), {"stride": 0}),
+        ((x, w, fac, bias), {"dilation": 0}),
+        ((x, w, fac, bias), {"out_dtype": torch.float16}),
+        ((x[:, :1, :1].contiguous(), torch.zeros(8, 2, 2, 16, dtype=torch.int8), fac, bias),
+         {}),  # no output pixel
+        ((x.to("meta"), w.to("meta"), fac.to("meta"), bias.to("meta")), {}),
+    ]:
+        with pytest.raises((TypeError, ValueError)):
+            qconv(*args, **kw)

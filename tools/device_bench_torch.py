@@ -15,6 +15,8 @@ N steps are timed by CUDA events around the whole run; the best of
     python3 tools/device_bench_torch.py --batch 1 --no_detect   # model-only ablation
     python3 tools/device_bench_torch.py --batch 16 --backbone resnet101 --config vid_512 \
         --bf16_weights --fused_cascade --prefilter 512
+    python3 tools/device_bench_torch.py --batch 16 --bf16_weights --int8 --int8_tcb \
+        --int8_gru --fused_cascade --prefilter 512        # int8 serving profile
 
 Prints one JSON line; ``device`` is the card's name and power limit as
 nvidia-smi reports them. The weights are a seeded random draw
@@ -33,7 +35,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import torch
 
-from bench_torch import add_selection_args, build_model, card_line, refuse_unported
+from bench_torch import (
+    add_int8_args, add_selection_args, apply_int8, build_model, card_line, check_int8_args,
+)
 from tdrn_tpu_torch.inference import StreamingDetector, capture
 from tdrn_tpu_torch.ops.preprocess import preprocess_batch
 from tdrn_tpu_torch.utils.precision import (
@@ -68,11 +72,9 @@ def parse_args(argv=None):
     ap.add_argument("--pad_stem", type=int, default=0,
                     help="zero-pad the stem input and kernel to N channels (conv stem)")
     add_selection_args(ap)
-    ap.add_argument("--int8", action="store_true", help="not ported (ROADMAP.md)")
-    ap.add_argument("--int8_tcb", action="store_true", help="not ported (ROADMAP.md)")
-    ap.add_argument("--int8_gru", action="store_true", help="not ported (ROADMAP.md)")
+    add_int8_args(ap)
     args = ap.parse_args(argv)
-    refuse_unported(ap, args)
+    check_int8_args(ap, args)
     if args.chunk < 1:
         ap.error("--chunk must be >= 1")
     return args
@@ -119,6 +121,7 @@ def main(argv=None):
     if args.bf16_weights:
         model = apply_inference_precision(model, "bf16")
     b, ch = args.batch, args.chunk
+    model = apply_int8(args, model, frames=min(ch * b, 8))
 
     # A distinct frame batch a step, (B, H, W, 3) or (chunk, B, H, W, 3), on the card.
     steps = max(args.frames // ch, 1)
@@ -150,6 +153,8 @@ def main(argv=None):
         "dtype": args.dtype,
         "bf16_weights": args.bf16_weights,
         "int8": args.int8,
+        "int8_tcb": args.int8_tcb,
+        "int8_gru": args.int8_gru,
         "fold_mean": args.fold_mean,
         "pad_stem": args.pad_stem,
         "chunk": ch,
