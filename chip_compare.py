@@ -3,6 +3,7 @@
 on one card: A, B, B, A, each run in a fresh process.
 
     python3 chip_compare.py DIR_A DIR_B
+    python3 chip_compare.py --int8 DIR_A DIR_B
 
 DIR_A and DIR_B are checkouts of this repository, for example this one and a
 `git archive` of its parent unpacked under build/. Each run builds that
@@ -18,6 +19,11 @@ the same seeded random weights and the same frames:
 - K1 and K2 alone at the main path's shapes (B=16; 496 rows of 200), on the
   same seeded inputs in every run, with this checkout's chip_smoke.time_ms,
   so that a kernel of either checkout is timed the same way.
+With --int8 each run times the int8 serving profile instead: VID_320 with
+the conv stem, fused cascade and ConvGRU, resident bf16 then int8 with tcb
+and gru (chip_smoke.int8_model: calibrated on 8 seeded frames, 37 QConvs),
+S=16, prefilter 512, 320x320 frames: the graphed step and its host time, and
+the same model's bf16 step beside it.
 It prints the card line, one JSON line a run, and last the medians of each
 checkout's two runs. It checks nothing: chip_smoke.py does.
 """
@@ -65,7 +71,20 @@ def kernel_times(torch, smoke) -> dict:
     )
 
 
-def worker(root: str) -> dict:
+def int8_times(torch, smoke) -> dict:
+    """The VID_320 int8 step and its bf16 twin of the checkout under test."""
+    from tdrn_tpu_torch.config import VID_320
+
+    bf16, model8, _ = smoke.int8_model(torch, dataclasses.replace(VID_320, fused_cascade=True))
+    out = {}
+    _, _, out["int8_step_ms"], out["int8_host_ms"] = smoke.time_streaming(
+        torch, model8, hw=(320, 320), prefilter=512)
+    _, _, out["bf16_twin_step_ms"], out["bf16_twin_host_ms"] = smoke.time_streaming(
+        torch, bf16, hw=(320, 320), prefilter=512)
+    return out
+
+
+def worker(root: str, int8: bool) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -79,6 +98,8 @@ def worker(root: str) -> dict:
     smoke = _smoke()
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for cuDNN convs
     _build.build_all()
+    if int8:
+        return {"root": root, **int8_times(torch, smoke)}
     out = {"root": root, **kernel_times(torch, smoke)}
     cfg = dataclasses.replace(VID_320, fused_cascade=True)
     fp32 = smoke.random_params(build_detector(cfg, stem="fused"), smoke.SEED)
@@ -94,20 +115,23 @@ def worker(root: str) -> dict:
 
 
 def main() -> int:
-    if sys.argv[1:2] == ["--worker"]:
-        print(json.dumps(worker(sys.argv[2])), flush=True)
+    args = sys.argv[1:]
+    int8 = "--int8" in args
+    args = [a for a in args if a != "--int8"]
+    if args[:1] == ["--worker"]:
+        print(json.dumps(worker(args[1], int8)), flush=True)
         return 0
     import torch
 
-    if not torch.cuda.is_available() or len(sys.argv) != 3:
+    if not torch.cuda.is_available() or len(args) != 2:
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 2
-    a, b = sys.argv[1:]
+    a, b = args
     print(_smoke().card_line(), flush=True)
     runs = []
     for root in (a, b, b, a):
-        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root],
-                             capture_output=True, text=True, timeout=900)
+        cmd = [sys.executable, os.path.abspath(__file__), "--worker", root] + (["--int8"] if int8 else [])
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             print(res.stdout, res.stderr[-4000:], file=sys.stderr)
             return 1

@@ -124,15 +124,20 @@
    - on each: one frame's raw predictions against a copy of the model on the
      CPU (the plain versions) within 5e-2 of max|ref|, and the PTQ deviation
      against the same model's bf16 profile (logged); K1, K2 and K5 counted
-     a replayed step by the profiler (K5 once a QConv);
-   - K5 against its plain version, bit-equal in bf16 and fp32 output, on
-     every distinct conv shape of those paths, on ragged shapes (B=2, 44x52,
-     Cin 3 and 12, Cout 24) and on all +-127 operands; each distinct shape
-     timed with its bound at 1,979 TOP/s int8 or 3.35 TB/s, TOP/s, the plain
-     version's time, torch._int_mm on the same operands for 1x1 stride-1
-     shapes (library_ms; its int32 accumulators must equal the plain
-     version's) and cuDNN's bf16 conv for the others (a yardstick); the sum
-     over each path's step;
+     a replayed step by the profiler (K5 once a QConv: it quantizes its own
+     input, and no PyTorch rounding kernel may run in the step);
+   - K5 (the whole QConv: quantize-on-load, s8 wgmma, epilogue) against its
+     plain version, bit-equal in bf16 and fp32 input and output, on
+     channels_last and NCHW input, on every distinct conv shape of those
+     paths, on ragged shapes (B=2, 44x52, Cin 3, 12 and 64, Cout 24) and on
+     all +-127 weights with inputs past +-xscale; every shape whose plan
+     splits K also launched twice in a CUDA graph replayed twice (the split
+     tickets reset); each distinct shape timed with its bound at 1,979
+     TOP/s int8 or 3.35 TB/s (bf16 activations read once), TOP/s, the plain
+     version's time, torch._int_mm on the same operands quantized for 1x1
+     stride-1 shapes (library_ms; its int32 accumulators must equal the
+     plain version's) and cuDNN's bf16 conv for the others (a yardstick);
+     the sum over each path's step;
    - timed: the VID_320 int8 step and the same model's bf16 step (graphed
      and eager), the ResNet-101 vid_512 int8 step, and the server on the
      VID_320 int8 model.
@@ -865,12 +870,14 @@ def profile_step(torch, step, out_name, steps=3):
     log("\n".join(lines[:25]))
 
 
-def replayed_kernel_counts(torch, make_det, frames, wrappers, what, steps=3, per_step=None):
+def replayed_kernel_counts(torch, make_det, frames, wrappers, what, steps=3, per_step=None,
+                           banned=()):
     """From a detector's construction on, under torch.profiler: its warm-up,
     its capture and `steps` replays. Counts each wrapper's device kernel
     events by name and checks that each kernel ran per_step[name] times (1
     where not given) in the warm-up and in every replayed step (a capture
-    runs nothing). Returns the kernel runs a replayed step, by wrapper."""
+    runs nothing), and that no device kernel's name holds one of `banned`.
+    Returns the kernel runs a replayed step, by wrapper."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -886,6 +893,9 @@ def replayed_kernel_counts(torch, make_det, frames, wrappers, what, steps=3, per
         for w in wrappers:
             if any(name in e.key for name in KERNEL_NAMES[w]):
                 counts[w] += e.count
+    hits = {e.key[:90]: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and any(b in e.key for b in banned)}
+    check(not hits, f"{what}: kernels that must not run: {hits}")
     runs = {w: n / (det.captures + det.replays) for w, n in counts.items()}
     log(f"  {what}: kernel events over {det.captures} warm-up and {det.replays} replayed steps "
         f"{counts}; a replayed step runs {runs}")
@@ -1439,6 +1449,9 @@ def ssd_path(torch, counters, card):
 # --- the int8 serving profile: K5 and the int8 paths --------------------------
 
 K5_COUNTS = {"fused_stem_stage1": 0, "fused_conv_stage": 0}  # no fused stem on an int8 path
+# PyTorch's rounding kernel: K5 quantizes its own input, so no int8 step may
+# run one (ops/qconv.py quantize_act runs it on the plain route only).
+QUANTIZE_PASSES = ("round_kernel",)
 
 
 def int8_model(torch, cfg, **build):
@@ -1565,7 +1578,7 @@ def int8_variant_paths(torch, counters, names):
                                                       (3, 2), path, per_step={"qconv": nq})
         runs[path] = replayed_kernel_counts(
             torch, lambda: StreamingDetector(model, num_streams=4, prefilter=512),
-            torch.tensor(frames[0]), names, path, per_step={"qconv": nq})
+            torch.tensor(frames[0]), names, path, per_step={"qconv": nq}, banned=QUANTIZE_PASSES)
         img = torch.tensor(frames[0, :1])
         checks[path] = dict(qconvs=nq, rel_err_bf16=cpu_rel_err(torch, model, img, path),
                             ptq_deviation=ptq_deviation(torch, model, bf16, img, path))
@@ -1574,85 +1587,150 @@ def int8_variant_paths(torch, counters, names):
     return launches, runs, held, checks, calls
 
 
-def _qconv_inputs(torch, rng, b, h, w, cin, cout, k, extreme=False):
-    """Seeded K5 inputs on the card: int8 activations and weights (uniform in
-    [-127, 127], or all +-127 with extreme), the padded channels zero, and
-    realistic fac and bias."""
-    from tdrn_tpu_torch.ops.qconv import padded_channels
+def _qconv_inputs(torch, gen, b, h, w, cin, cout, k, extreme=False):
+    """Seeded K5 inputs on the card: fp32 activations (B, C, H, W) in
+    channels_last, a third of them past +-xscale (clamped to +-127), or all
+    at +-3 xscale with all +-127 weights (extreme); int8 weights, the scales
+    and bias as a QConv holds them (ops/qconv.py act_scale, dequant_factor)."""
+    from tdrn_tpu_torch.ops.qconv import act_scale, dequant_factor
 
-    cp = padded_channels(cin)
-    draw = ((lambda shape: np.where(rng.random(shape) < 0.5, 127, -127)) if extreme
-            else (lambda shape: rng.integers(-127, 128, shape)))
-    x, wt = draw((b, h, w, cp)).astype(np.int8), draw((cout, k, k, cp)).astype(np.int8)
-    x[..., cin:] = 0
-    wt[..., cin:] = 0
-    fac = (rng.uniform(0.5, 2.0, cout) * 1e-4).astype(np.float32)
-    bias = rng.normal(0.0, 0.1, cout).astype(np.float32)
-    t = lambda a: torch.from_numpy(a).cuda()
-    return t(x), t(wt), t(fac), t(bias)
+    xscale = torch.rand((), device="cuda", generator=gen) * 4 + 2
+    u = torch.rand((b, cin, h, w), device="cuda", generator=gen)
+    shape_w = (cout, k, k, cin)
+    if extreme:
+        x = torch.where(u < 0.5, 3.0, -3.0) * xscale
+        wt = torch.where(torch.rand(shape_w, device="cuda", generator=gen) < 0.5, 127, -127)
+    else:
+        x = (u * 3.0 - 1.5) * xscale
+        wt = torch.randint(-127, 128, shape_w, device="cuda", generator=gen)
+    wscale = torch.rand(cout, device="cuda", generator=gen) * 4e-3 + 1e-3
+    bias = torch.randn(cout, device="cuda", generator=gen) * 0.1
+    return (x.contiguous(memory_format=torch.channels_last), wt.to(torch.int8).contiguous(),
+            act_scale(xscale), dequant_factor(wscale, xscale), bias)
 
 
-def _k5_equal(torch, args, s, d, what):
-    """K5 against its plain version in bf16 and fp32 output: bit-equal."""
-    from tdrn_tpu_torch.ops.qconv import qconv, qconv_plain
+# (input dtype, output dtype, input layout) of every K5 check.
+K5_CASES = (("bfloat16", "bfloat16", "channels_last"), ("float32", "float32", "channels_last"),
+            ("bfloat16", "float32", "channels_last"), ("float32", "bfloat16", "channels_last"),
+            ("bfloat16", "bfloat16", "nchw"), ("float32", "float32", "nchw"))
 
-    for od in (torch.bfloat16, torch.float32):
-        got = qconv(*args, stride=s, dilation=d, out_dtype=od)
-        ref = qconv_plain(*args, s, d, od)
+
+def _k5_equal(torch, args, s, d, what, cases=K5_CASES):
+    """K5 against its plain version, bit-equal: input dtype, output dtype and
+    layout as each case says (the activations cast from args' fp32 values)."""
+    from tdrn_tpu_torch.ops.qconv import pack_weight, qconv, qconv_plain
+
+    x32, wt, sc, fac, bias = args
+    wp = pack_weight(wt)
+    for xd, od, layout in cases:
+        xd, od = getattr(torch, xd), getattr(torch, od)
+        fmt = torch.channels_last if layout == "channels_last" else torch.contiguous_format
+        x = x32.to(xd).contiguous(memory_format=fmt)
+        got = qconv(x, wt, sc, fac, bias, stride=s, dilation=d, out_dtype=od, wpack=wp)
+        ref = qconv_plain(x, wt, sc, fac, bias, s, d, od)
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
             diff = (got.float() - ref.float()).abs()
-            raise AssertionError(f"K5 {what} {od}: differs from its plain version in "
-                                 f"{int((diff > 0).sum())} of {diff.numel()} outputs, max "
-                                 f"{diff.max().item():.4g}")
+            raise AssertionError(f"K5 {what} {xd} in, {od} out, {layout}: differs from its plain "
+                                 f"version in {int((diff > 0).sum())} of {diff.numel()} outputs, "
+                                 f"max {diff.max().item():.4g}")
 
 
-def phase_qconv(torch, rng, calls_by_path, card):
-    """K5 on every distinct conv shape of the int8 paths, on a ragged shape
-    (B=2, 44x52, Cin 3 and 12, Cout 24) and on all +-127 inputs at the
-    deepest K: bit-equal to its plain version in bf16 and fp32 output. Each
-    distinct shape timed (flushed median of 30) beside its plain version
-    (median of 3), its bound at PEAK_INT8 and, for 1x1 stride-1 shapes,
-    torch._int_mm on the same int8 operands (library_ms; its int32
-    accumulators must equal the plain version's), for the others cuDNN's bf16
-    conv of the same shape (a yardstick only; the port never calls either).
-    Returns K5's kernels-line entry, with the sum over each path's step; the
-    rows of the distinct shapes go to chiprun_out/k5_shapes.json."""
+def _k5_graph_twice(torch, args, s, d, what):
+    """A split-k shape launched twice inside one CUDA graph, the graph replayed
+    twice: every output bit-equal to the plain version, so the tickets and the
+    workspace were reset between launches and replays."""
+    from tdrn_tpu_torch.ops.qconv import pack_weight, qconv, qconv_plain
+
+    x32, wt, sc, fac, bias = args
+    x = x32.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    wp = pack_weight(wt)
+    ref = qconv_plain(x, wt, sc, fac, bias, s, d, torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        qconv(x, wt, sc, fac, bias, stride=s, dilation=d, wpack=wp)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y1 = qconv(x, wt, sc, fac, bias, stride=s, dilation=d, wpack=wp)
+        y2 = qconv(x, wt, sc, fac, bias, stride=s, dilation=d, wpack=wp)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(y1, ref) and torch.equal(y2, ref),
+              f"K5 {what}: a graph replay of two split-k launches differs from the plain version")
+
+
+def phase_qconv(torch, calls_by_path, card):
+    """K5 on every distinct conv shape of the int8 paths, bit-equal to its
+    plain version in bf16 and fp32 input and output, on channels_last and
+    NCHW input; on ragged shapes (B=2, 44x52, Cin 3, 12 and 64, Cout 24) and
+    on all +-127 weights with inputs at +-3 xscale at the deepest K; every
+    shape whose plan splits K also launched twice in a CUDA graph replayed
+    twice. Each distinct shape timed (flushed median of 30, bf16 in and out)
+    beside its plain version (median of 3), the PyTorch passes that
+    quantized its input before K5 did (quantize_nhwc, a yardstick), its
+    bound at PEAK_INT8 or
+    PEAK_BYTES (bf16 activations read once, the int8 weights, the scales, the
+    bf16 output written once; 2*M*Cout*K operations on the true channels)
+    and, for 1x1 stride-1 shapes, torch._int_mm on the same operands
+    quantized to int8 (library_ms; its int32 accumulators must equal the
+    plain version's), for the others cuDNN's bf16 conv of the same shape (a
+    yardstick only; the port never calls either). Returns K5's kernels-line
+    entry, with the sum over each path's step; the rows of the distinct
+    shapes go to chiprun_out/k5_shapes.json."""
     import torch.nn.functional as F
 
-    from tdrn_tpu_torch.ops.qconv import conv_out_size, padded_channels, qconv, qconv_plain
+    from tdrn_tpu_torch.ops.qconv import (conv_out_size, pack_weight, plan, qconv, qconv_plain,
+                                          quantize_nhwc)
 
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
     for b, h, w, cin, cout, k, s, d in ((2, 44, 52, 3, 24, 3, 1, 1), (2, 44, 52, 12, 24, 3, 1, 1),
                                         (2, 44, 52, 3, 24, 7, 2, 1), (2, 44, 52, 12, 24, 1, 2, 1),
-                                        (2, 44, 52, 12, 24, 3, 1, 3)):
-        _k5_equal(torch, _qconv_inputs(torch, rng, b, h, w, cin, cout, k), s, d,
+                                        (2, 44, 52, 12, 24, 3, 1, 3), (2, 44, 52, 64, 24, 3, 1, 1),
+                                        (2, 44, 52, 64, 24, 1, 2, 1)):
+        _k5_equal(torch, _qconv_inputs(torch, gen, b, h, w, cin, cout, k), s, d,
                   f"ragged {(b, h, w, cin, cout, k, s, d)}")
-    log("  K5 ragged shapes (B=2, 44x52, Cin 3 and 12, Cout 24; 3x3, 7x7/2, 1x1/2, 3x3 dil 3): "
-        "bit-equal in bf16 and fp32")
-    for shape in ((B, 40, 40, 512, 512, 3, 1, 1), (B, 10, 10, 1024, 1024, 1, 1, 1)):
+    log("  K5 ragged shapes (B=2, 44x52, Cin 3, 12 and 64, Cout 24; 3x3, 7x7/2, 1x1/2, 3x3 dil 3): "
+        "bit-equal in bf16 and fp32 in and out, channels_last and NCHW")
+    for shape in ((B, 40, 40, 512, 512, 3, 1, 1), (B, 10, 10, 1024, 1024, 1, 1, 1),
+                  (B, 5, 5, 512, 512, 3, 1, 1)):
         b, h, w, cin, cout, k, s, d = shape
-        _k5_equal(torch, _qconv_inputs(torch, rng, b, h, w, cin, cout, k, extreme=True), s, d,
+        _k5_equal(torch, _qconv_inputs(torch, gen, b, h, w, cin, cout, k, extreme=True), s, d,
                   f"all +-127 {shape}")
-    log("  K5 all +-127 inputs and weights (|acc| up to 127^2 x 4608): bit-equal")
+    log("  K5 all +-127 weights, inputs at +-3 xscale (|acc| up to 127^2 x 4608): bit-equal")
 
-    rows = {}
+    rows, splits = {}, 0
     for shape in sorted({c for calls in calls_by_path.values() for c in calls}):
         b, h, w, cin, cout, k, s, d = shape
-        args = _qconv_inputs(torch, rng, b, h, w, cin, cout, k)
+        args = _qconv_inputs(torch, gen, b, h, w, cin, cout, k)
         _k5_equal(torch, args, s, d, str(shape))
-        x, wt = args[0], args[1]
-        cp = padded_channels(cin)
+        pl = plan(*shape)
+        if pl.splits > 1:
+            _k5_graph_twice(torch, args, s, d, str(shape))
+            splits += 1
+        x = args[0].to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wt, sc, fac, bias = args[1:]
+        wp = pack_weight(wt)
         ho, wo = conv_out_size(h, k, s, d), conv_out_size(w, k, s, d)
-        ops = 2 * b * ho * wo * cout * k * k * cp
-        nbytes = x.numel() + wt.numel() + 8 * cout + 2 * b * ho * wo * cout
+        ops = 2 * b * ho * wo * cout * k * k * cin
+        nbytes = 2 * x.numel() + wp.numel() + 12 * cout + 4 + 2 * b * ho * wo * cout
         bms, by = bound(nbytes, ops, PEAK_INT8)
-        ms = time_ms(torch, lambda: qconv(*args, stride=s, dilation=d))
-        plain_ms = time_ms(torch, lambda: qconv_plain(*args, s, d), reps=3, warmup=1)
-        row = dict(shape=list(shape), ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                   ops=ops, bytes=nbytes, tops=ops / ms / 1e9, library_ms=None,
-                   cudnn_bf16_ms=None)
+        ms = time_ms(torch, lambda: qconv(x, wt, sc, fac, bias, stride=s, dilation=d, wpack=wp))
+        plain_ms = time_ms(torch, lambda: qconv_plain(x, wt, sc, fac, bias, s, d), reps=3, warmup=1)
+        # The PyTorch passes that quantized this input on the card before K5
+        # quantized on load: a yardstick for the shape.
+        quantize_ms = time_ms(torch, lambda: quantize_nhwc(x, sc))
+        row = dict(shape=list(shape), plan=dict(bn=pl.bn, splits=pl.splits, stages=pl.stages,
+                                                flat=pl.flat, grid=pl.grid),
+                   ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, ops=ops, bytes=nbytes,
+                   tops=ops / ms / 1e9, library_ms=None, cudnn_bf16_ms=None,
+                   quantize_ms=quantize_ms)
         if k == 1 and s == 1:
-            a2, b2 = x.view(-1, cp), wt.view(cout, cp).t()
+            xq = quantize_nhwc(x, sc)[..., :cin]
+            a2, b2 = xq.reshape(-1, cin).contiguous(), wt.view(cout, cin).t()
             acc = torch._int_mm(a2, b2)
             ref = (a2.double() @ b2.double()).to(torch.int32)
             torch.cuda.synchronize()
@@ -1660,29 +1738,31 @@ def phase_qconv(torch, rng, calls_by_path, card):
                                          f"from the plain version's")
             row["library_ms"] = time_ms(torch, lambda: torch._int_mm(a2, b2))
         else:
-            cl = torch.channels_last
-            xb = x.permute(0, 3, 1, 2).bfloat16().contiguous(memory_format=cl)
-            wb = wt.permute(0, 3, 1, 2).bfloat16().contiguous(memory_format=cl)
+            wb = wt.permute(0, 3, 1, 2).bfloat16().contiguous(memory_format=torch.channels_last)
             pad = d * (k - 1) // 2
-            row["cudnn_bf16_ms"] = time_ms(torch, lambda: F.conv2d(xb, wb, None, s, pad, d))
+            row["cudnn_bf16_ms"] = time_ms(torch, lambda: F.conv2d(x, wb, None, s, pad, d))
         rows[shape] = row
         lib = (f"_int_mm {row['library_ms']:.4f} ms" if row["library_ms"] is not None
                else f"cuDNN bf16 {row['cudnn_bf16_ms']:.4f} ms")
-        log(f"  K5 {shape}: {ms:.4f} ms = {row['tops']:.1f} TOP/s, bound {bms:.4f} ms ({by}, "
-            f"share {bms / ms:.3f}), plain {plain_ms:.3f} ms, {lib} on {card}")
-        del args, x, wt
+        log(f"  K5 {shape} bn {pl.bn} splits {pl.splits}: {ms:.4f} ms = {row['tops']:.1f} TOP/s, "
+            f"bound {bms:.4f} ms ({by}, share {bms / ms:.3f}), plain {plain_ms:.3f} ms, {lib}, "
+            f"PyTorch quantize passes {quantize_ms:.4f} ms on {card}")
+        del args, x, wt, wp
+    log(f"  K5 every distinct shape ({len(rows)}): bit-equal in bf16 and fp32 in and out, "
+        f"channels_last and NCHW; {splits} split-k shapes also graphed twice, replayed twice")
 
     steps = {}
     for path, calls in calls_by_path.items():
         tot = {key: sum(rows[c][key] for c in calls)
-               for key in ("ms", "plain_ms", "bound_ms", "ops", "bytes")}
+               for key in ("ms", "plain_ms", "bound_ms", "ops", "bytes", "quantize_ms")}
         by_ops = sum(rows[c]["bound_ms"] for c in calls if rows[c]["bound_by"] == "operations")
         tot["bound_by"] = "operations" if 2 * by_ops >= tot["bound_ms"] else "bytes"
         tot["launches_a_step"] = len(calls)
         steps[path] = tot
         log(f"  K5 over one {path} step ({len(calls)} launches, {tot['ops'] / 1e12:.3f} TOP): "
             f"{tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms (share "
-            f"{tot['bound_ms'] / tot['ms']:.3f}), plain {tot['plain_ms']:.3f} ms on {card}")
+            f"{tot['bound_ms'] / tot['ms']:.3f}), plain {tot['plain_ms']:.3f} ms, PyTorch "
+            f"quantize passes {tot['quantize_ms']:.4f} ms on {card}")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "k5_shapes.json"), "w") as f:
         json.dump({"card": card, "shapes": [rows[c] for c in sorted(rows)],
@@ -1690,7 +1770,8 @@ def phase_qconv(torch, rng, calls_by_path, card):
                                      for p, calls in calls_by_path.items()}}, f, indent=1)
     main = steps["int8_vid320"]
     return dict(name="qconv", wrapper="qconv", source="tdrn_tpu_torch/csrc/qconv.cu",
-                replaces="tdrn_tpu/models/layers.py:150 (XLA s8 conv)", max_abs_err=0.0,
+                replaces="tdrn_tpu/models/layers.py:182 (XLA's QConv: quantize, s8 conv, "
+                         "dequantize)", max_abs_err=0.0,
                 ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                 bound_by=main["bound_by"], timed="the sum over the VID_320 int8 step's 37 launches",
                 step_totals=steps)
@@ -1844,10 +1925,12 @@ def main() -> int:
     names8 = [c.__name__ for c in counters8]
     per_step["int8_vid320"] = replayed_kernel_counts(
         torch, lambda: StreamingDetector(model8, num_streams=STREAMS, prefilter=512), frames8,
-        names8, "VID_320 int8", per_step={**K5_COUNTS, "qconv": len(calls320)})
+        names8, "VID_320 int8", per_step={**K5_COUNTS, "qconv": len(calls320)},
+        banned=QUANTIZE_PASSES)
     per_step["int8_resnet101_512"] = replayed_kernel_counts(
         torch, lambda: StreamingDetector(model_r8, num_streams=STREAMS, prefilter=512), frames_r,
-        list(K12) + ["qconv"], "ResNet-101 vid_512 int8", per_step={"qconv": len(calls512)})
+        list(K12) + ["qconv"], "ResNet-101 vid_512 int8", per_step={"qconv": len(calls512)},
+        banned=QUANTIZE_PASSES)
     t0 = time.perf_counter()
     log("the other stems and cells at vid_320 (resident bf16, S=4), graphed:")
     variant_launches, variant_steps, variant_held = variant_paths(torch, counters16, list(K12))
@@ -1861,8 +1944,8 @@ def main() -> int:
     log(f"  ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     log("K5 qconv against its plain version, every distinct conv shape of the int8 paths:")
-    k5 = phase_qconv(torch, rng, {"int8_vid320": calls320, "int8_resnet101_512": calls512,
-                                  **v8_calls}, card)
+    k5 = phase_qconv(torch, {"int8_vid320": calls320, "int8_resnet101_512": calls512, **v8_calls},
+                     card)
     results.append(k5)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
     if "--profile" in sys.argv[1:]:

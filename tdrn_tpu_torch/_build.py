@@ -52,8 +52,10 @@ _SIGNATURES = {
     "stem": ("tdrn_stem", [_P] * 6 + [_I] * 9 + [_P]),
     # x, k1, b1, k2, b2, out, B, H, W, Cin, Cmid, Cout, in_bf16, out_bf16, stream
     "conv_stage": ("tdrn_conv_stage", [_P] * 6 + [_I] * 8 + [_P]),
-    # x, w, fac, bias, out, B, H, W, C, Cout, KH, KW, stride, dilation, out_bf16, stream
-    "qconv": ("tdrn_qconv", [_P] * 5 + [_I] * 10 + [_P]),
+    # x, w (packed), s, fac, bias, out, ws (or null), B, H, W, C, Cout, KH, KW,
+    # stride, dilation, sb, sh, sw, sc, x_bf16, out_bf16, bn, splits, stages,
+    # flat, kp, grid, stream
+    "qconv": ("tdrn_qconv", [_P] * 7 + [_I] * 21 + [_P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,7 +1,6 @@
-// Tensor-core helpers shared by stem.cu (K3), conv_stage.cu (K4) and qconv.cu
-// (K5): bf16 packing, shared-memory addresses, ldmatrix, mma.sync.m16n8k16
-// with bf16 inputs and fp32 accumulators, and mma.sync.m16n8k32 with s8
-// inputs and s32 accumulators. Each source that includes this file keeps its
+// Tensor-core helpers shared by stem.cu (K3) and conv_stage.cu (K4): bf16
+// packing, shared-memory addresses, ldmatrix and mma.sync.m16n8k16 with bf16
+// inputs and fp32 accumulators. Each source that includes this file keeps its
 // own copy (anonymous namespace); _build.py hashes it with every source.
 #pragma once
 
@@ -23,8 +22,7 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 // Four 8x8 matrices of 16-bit elements (8 rows of 16 bytes); lane l gives
 // the row address of row l % 8 of matrix l / 8. Plain: the A fragment of
-// m16n8k16, or of m16n8k32 on 8-bit data (the byte layouts agree). Transposed:
-// two bf16 B fragments from k-major rows.
+// m16n8k16. Transposed: two bf16 B fragments from k-major rows.
 __device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -42,15 +40,6 @@ __device__ __forceinline__ void mma16816(float* d, const uint32_t* a, uint32_t b
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a (16x32, row) * b (32x8, col); s8 inputs, s32 accumulators (exact).
-__device__ __forceinline__ void mma16832_s8(int* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -11,9 +11,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from tdrn_tpu_torch.ops.qconv import fp32_div, qconv, quantize_act
+from tdrn_tpu_torch.ops.qconv import act_scale, dequant_factor, pack_weight, qconv
 
 
 class L2Norm(nn.Module):
@@ -46,11 +45,17 @@ class QConv(nn.Module):
     Cin), symmetric per output channel (the JAX ``kernel``, HWIO, transposed
     so that k is contiguous); ``wscale`` fp32 (Cout), its step max|w| / 127;
     ``xscale`` fp32 (), the calibrated max|input|; ``bias`` fp32 (Cout). The
-    forward quantizes the input to int8 with the static ``xscale``, runs the
-    s8 x s8 -> s32 conv (K5) and returns ``float(acc) * (wscale * (xscale /
-    127)) + bias`` in ``dtype``, an NCHW (channels_last) view of the kernel's
-    NHWC output. SAME padding ``dilation * (k - 1) // 2``; the zero point is
-    0, so the zero padding stays exact.
+    forward is one K5 launch: it quantizes the input to int8 with the static
+    ``xscale``, runs the s8 x s8 -> s32 conv and returns ``float(acc) *
+    (wscale * (xscale / 127)) + bias`` in ``dtype``, an NCHW (channels_last)
+    view of the kernel's NHWC output. SAME padding ``dilation * (k - 1) //
+    2``; the zero point is 0, so the zero padding stays exact.
+
+    Derived once, not per forward (non-persistent buffers, remade by
+    :meth:`refresh` whenever the buffers above are loaded): ``s = 127 /
+    xscale``, ``fac = wscale * (xscale / 127)`` (the JAX package's fp32
+    operations) and ``wpack``, the weights packed for K5 (ops/qconv.py
+    ``pack_weight``).
 
     A cast of the module (``module.to(dtype)``, ``.bfloat16()``) leaves every
     buffer's dtype as it is and moves only the device: the scales and bias
@@ -68,6 +73,9 @@ class QConv(nn.Module):
         self.register_buffer("wscale", torch.ones(cout))
         self.register_buffer("xscale", torch.ones(()))
         self.register_buffer("bias", torch.zeros(cout))
+        for name in ("s", "fac", "wpack"):
+            self.register_buffer(name, None, persistent=False)
+        self.refresh()
 
     @classmethod
     def like(cls, conv: nn.Conv2d, dtype: torch.dtype) -> "QConv":
@@ -79,6 +87,17 @@ class QConv(nn.Module):
         out = cls(conv.in_channels, conv.out_channels, k, s, d, dtype)
         return out.to(conv.weight.device)
 
+    @torch.no_grad()
+    def refresh(self) -> None:
+        """Remake ``s``, ``fac`` and ``wpack`` from the loaded buffers."""
+        self.s = act_scale(self.xscale)
+        self.fac = dequant_factor(self.wscale, self.xscale)
+        self.wpack = pack_weight(self.weight)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        self.refresh()
+
     def _apply(self, fn, recurse=True):
         def same_dtype(t):
             out = fn(t)
@@ -86,13 +105,8 @@ class QConv(nn.Module):
         return super()._apply(same_dtype, recurse)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xq = quantize_act(x, self.xscale)
-        w = self.weight
-        if w.shape[-1] != xq.shape[-1]:  # the stems' 3 and 12 channels, padded to 16
-            w = F.pad(w, (0, xq.shape[-1] - w.shape[-1]))
-        fac = self.wscale * fp32_div(self.xscale, 127.0)
-        y = qconv(xq, w, fac, self.bias, stride=self.stride, dilation=self.dilation,
-                  out_dtype=self.dtype)
+        y = qconv(x, self.weight, self.s, self.fac, self.bias, stride=self.stride,
+                  dilation=self.dilation, out_dtype=self.dtype, wpack=self.wpack)
         return y.permute(0, 3, 1, 2)
 
     def extra_repr(self) -> str:

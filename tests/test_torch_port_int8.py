@@ -1,7 +1,7 @@
 """The port's int8 serving profile as a whole against the JAX package's, on
 the CPU: the int8 detector (VGG-16 conv stem with tcb and gru over two
 streaming steps, in fp32 and in the resident-bf16 profile; s2d + light;
-ResNet-101 with tcb) on the same JAX-calibrated scales, the int8 activation
+ResNet-101 with tcb) on the same calibrated scales, the int8 activation
 flips between the two counted and logged; StreamingDetector on an int8 model
 at chunk 1 (against JAX's) and chunk 2; the single-image and clip forwards;
 and ``bench_torch.py --int8``.
@@ -60,7 +60,11 @@ def _leaf_shapes(tree):
 @functools.lru_cache(maxsize=None)
 def int8_pair(name, precision="fp32"):
     """(JAX int8 model, its tree, port int8 model, scales): the same seeded
-    draw, the same JAX-calibrated scales (tcb, and gru except on ResNet)."""
+    draw, the same scales (tcb, and gru except on ResNet) for both. The
+    scales are the port's calibration (calibrate_act_scales, held against
+    the JAX package's in tests/test_torch_port_quantize.py); the JAX
+    package's, an eager forward capturing intermediates, takes ~11 s a
+    model here."""
     kw = dict(MODELS[name])
     small = dict(tcb_channels=32, width_mult=0.0625 if kw.get("backbone") else 0.125)
     jmodel = j_build(jcfg.TINY_64, **kw, **small)
@@ -74,7 +78,8 @@ def int8_pair(name, precision="fp32"):
         tmodel = tprec.apply_inference_precision(tmodel, "bf16")
     calib = (np.random.default_rng(22).uniform(0, 255, (3, 64, 64, 3)) - 117.0).astype("f4")
     gru = name != "resnet"
-    scales = jq.calibrate_act_scales(jmodel, tree, jnp.asarray(calib, jmodel.dtype), tcb=True, gru=gru)
+    scales = tq.calibrate_act_scales(tmodel, torch.from_numpy(calib).to(tmodel.dtype), tcb=True,
+                                     gru=gru)
     jqm, jqt = jq.apply_int8_backbone(jmodel, tree, act_scales=scales)
     return jqm, jqt, tq.apply_int8_backbone(tmodel, act_scales=scales), scales
 

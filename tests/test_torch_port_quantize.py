@@ -292,7 +292,8 @@ def test_qconv_plain_matches_int_mm_on_a_1x1():
     """A 1x1 stride-1 QConv is a GEMM over pixels: the plain version's
     dequantized output equals torch._int_mm's int32 accumulators put through
     the same two fp32 operations, bit for bit, on values that reach past
-    2**24."""
+    2**24. The activations are the int8 values themselves in bf16 and fp32,
+    quantized with s = 1 (exact)."""
     rng = np.random.default_rng(13)
     x = torch.from_numpy(rng.integers(-127, 128, (2, 6, 7, 512)).astype(np.int8))
     w = torch.from_numpy(rng.integers(-127, 128, (40, 1, 1, 512)).astype(np.int8))
@@ -303,10 +304,13 @@ def test_qconv_plain_matches_int_mm_on_a_1x1():
     acc = torch._int_mm(x.view(-1, 512), w.view(40, 512).t())
     assert int(acc.max()) == 127 * 127 * 512
     want = (acc.float() * fac + bias).view(2, 6, 7, 40)
-    for od in (torch.float32, torch.bfloat16):
-        got = qconv(x, w, fac, bias, out_dtype=od)
-        assert torch.equal(got, want.to(od))
-        assert torch.equal(got, qconv_plain(x, w, fac, bias, 1, 1, od))
+    one = torch.tensor(1.0)
+    for xd in (torch.bfloat16, torch.float32):
+        xf = x.permute(0, 3, 1, 2).to(xd)
+        for od in (torch.float32, torch.bfloat16):
+            got = qconv(xf, w, one, fac, bias, out_dtype=od)
+            assert torch.equal(got, want.to(od))
+            assert torch.equal(got, qconv_plain(xf, w, one, fac, bias, 1, 1, od))
 
 
 # --- (f) the quantized param tree through weights.py --------------------------
