@@ -141,6 +141,30 @@
    - timed: the VID_320 int8 step and the same model's bf16 step (graphed
      and eager), the ResNet-101 vid_512 int8 step, and the server on the
      VID_320 int8 model.
+8c. The entry points (run after the SSD phase, before the timings; their
+   profiler counts with the others), VID_320 at full width, S=16:
+   - a port checkpoint (train/checkpoint.py) of VID_320 with the conv stem,
+     ConvGRU and 256 TCB channels, the seeded random weights, written in
+     the call under build/entry_points/;
+   - load_inference_model(stem="fused2", precision="bf16") bit-equal in raw
+     predictions to the model built directly from the same state_dict;
+     4 graphed steps against eager; K2, K3 and K4 once a step (K1 never: no
+     CLI sets fused_cascade, prefilter off);
+   - a scales file calibrated (tcb, gru) on 8 seeded frames;
+     load_inference_model(precision="int8", int8_scales=...) bit-equal to
+     apply_int8_backbone on the same scales; graphed against eager; K2 and
+     K5 (37 QConvs) counted, K3/K4 never;
+   - serve_torch.py's server in this process on 127.0.0.1:0 (threaded, 16
+     lanes) on each model: 4 streams x 8 JPEG frames of 480x640 from
+     concurrent clients, a reset, each stream against a sequential
+     detector on the same decoded and resized frames (1e-5); the launches
+     of its warm-up and capture; frames/s and p50/p99 over HTTP with 16
+     clients x 8 frames; data/image.py's resize and PIL's decode timed on
+     the host, cv2.resize beside them where cv2 exists;
+   - eval_torch.py's main on a 16-image mini-VOC (a VOC_320 checkpoint) and
+     a 2-snippet mini-VID (--temporal --motion_breakdown), written in the
+     call: finite mAP; the --temporal detections against run_streaming on
+     the same frames (1e-5); each sub-step's seconds logged.
 9. Prints {"kernels": [...]} (K5's entry holds the VID_320 int8 step's sum
    and each path's; its per-shape rows go to chiprun_out/k5_shapes.json)
    and, last, {"ok": true, "device": {...}}.
@@ -1454,6 +1478,382 @@ K5_COUNTS = {"fused_stem_stage1": 0, "fused_conv_stage": 0}  # no fused stem on 
 QUANTIZE_PASSES = ("round_kernel",)
 
 
+# --- entry points: checkpoint restore, serve_torch.py, eval_torch.py ---------
+
+EP_LANES = 16  # serve_torch.py --lanes
+EP_STREAMS, EP_FRAMES = 4, 8  # HTTP streams x frames each, 480x640 JPEG, held
+EP_TIME_FRAMES = 8  # frames a stream in the timed HTTP round, EP_LANES streams
+EP_META = {"dataset": "vid_320", "backbone": "vgg16", "temporal": True, "stem": "conv",
+           "temporal_cell": "convgru", "tcb_channels": 256, "backbone_norm": "frozen"}
+# The entry points' paths: no fused cascade (no CLI sets it), prefilter off.
+EP_FUSED2 = {"fused_refine_cascade": 0, "fused_stem_stage1": 1, "fused_conv_stage": 1, "qconv": 0}
+EP_INT8 = {"fused_refine_cascade": 0, "fused_stem_stage1": 0, "fused_conv_stage": 0}
+
+
+def _write_checkpoint(directory, cfg, meta, seed):
+    """A port checkpoint (train/checkpoint.py's layout) of cfg's detector with
+    the seeded random weights; returns its state_dict on the CPU."""
+    import shutil
+
+    from tdrn_tpu_torch import weights
+    from tdrn_tpu_torch.models.detector import build_detector
+    from tdrn_tpu_torch.train import checkpoint
+
+    shutil.rmtree(directory, ignore_errors=True)
+    model = build_detector(cfg, temporal=meta["temporal"], stem=meta["stem"])
+    weights.load_random_params(model, seed)
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    checkpoint.save_params(directory, 1, sd)
+    checkpoint.save_meta(directory, meta)
+    return sd
+
+
+def _raw_equal(torch, a, b, frames, what):
+    """Raw predictions of two models on the same frames (zero state): bit-equal."""
+    from tdrn_tpu_torch.ops.preprocess import preprocess_batch
+
+    with torch.inference_mode():
+        outs = [m(preprocess_batch(frames, m.cfg, m.dtype), m.zero_state(frames.shape[0]))[0]
+                for m in (a, b)]
+    same = all(torch.equal(x, y) for x, y in zip(*outs))
+    err = max((x.float() - y.float()).abs().max().item() for x, y in zip(*outs))
+    log(f"  {what}: raw predictions {'bit-equal' if same else 'NOT bit-equal'} "
+        f"(max|diff| {err:.3g}) over {frames.shape[0]} frames")
+    check(same, f"{what}: the restored model differs from the directly built one")
+
+
+def _http_clients(port, payloads, reset=None, query="&thresh=0"):
+    """One client thread a stream: stream s posts payloads[s] in order to
+    /detect?stream=e<s><query>; reset = (s, i) posts /reset before frame i.
+    Returns ({s: [detections, ...]}, request seconds, wall seconds)."""
+    import http.client
+    import threading
+
+    results = {s: [] for s in range(len(payloads))}
+    seconds, errors = [], []
+
+    def post(conn, path, body):
+        conn.request("POST", path, body=body)
+        resp = conn.getresponse()
+        data = resp.read()
+        check(resp.status == 200, f"HTTP {resp.status} on {path}: {data[:200]!r}")
+        return json.loads(data)
+
+    def client(s):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        try:
+            for i, body in enumerate(payloads[s]):
+                if reset == (s, i):
+                    post(conn, f"/reset?stream=e{s}", b"")
+                t0 = time.perf_counter()
+                results[s].append(post(conn, f"/detect?stream=e{s}{query}", body)["detections"])
+                seconds.append(time.perf_counter() - t0)
+        except Exception as e:  # re-raised below, on the main thread
+            errors.append(e)
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(s,)) for s in results]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    check(all(len(r) == len(payloads[s]) for s, r in results.items()), "an HTTP client did not finish")
+    return results, seconds, wall
+
+
+def http_serving(torch, counters, argv, card, what, per_step):
+    """serve_torch.py's server in this process on 127.0.0.1:0 (threaded):
+    EP_STREAMS streams x EP_FRAMES 480x640 frames as JPEG from concurrent
+    clients (stream 1 reset before its frame 5), each stream's detections
+    against a sequential StreamingDetector fed the same decoded and resized
+    frames (SERVE_SCORE_ATOL), the launches of the server's warm-up and
+    capture; then a timed round of EP_LANES streams x EP_TIME_FRAMES frames.
+    Returns (launches, frames/s, latency percentiles)."""
+    import threading
+
+    import serve_torch
+    from tdrn_tpu_torch.data import image
+    from tdrn_tpu_torch.inference import StreamingDetector
+    from tdrn_tpu_torch.serving import LatencyStats
+
+    rng = np.random.default_rng(SEED + 20)
+    frames = rng.integers(0, 256, (EP_LANES, max(EP_FRAMES, EP_TIME_FRAMES), 480, 640, 3),
+                          dtype=np.uint8)
+    payloads = [[image.encode(f) for f in stream] for stream in frames]
+    for c in counters:
+        c.launches = 0
+    args = serve_torch.parse_args(argv + ["--port", "0", "--mode", "threaded",
+                                          "--lanes", str(EP_LANES)])
+    t0 = time.perf_counter()
+    server, names = serve_torch.build_server(args)
+    httpd = serve_torch.make_httpd(args, server, names)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    log(f"  {what}: serve_torch.build_server (restore, precision, warm-up and capture) "
+        f"{time.perf_counter() - t0:.1f} s")
+    port = httpd.server_address[1]
+    reset = (1, 5)
+    try:
+        results, _, _ = _http_clients(port, [p[:EP_FRAMES] for p in payloads[:EP_STREAMS]], reset)
+        torch.cuda.synchronize()
+        launches = read_launches(counters, server.det, f"{what}, {server.steps} server steps",
+                                 per_step)
+        lanes = {s: server._lane_of[f"e{s}"] for s in range(EP_STREAMS)}
+        # The timed round: every lane busy, after the lanes are warm; the
+        # CLI's default score threshold (0.3).
+        steps0 = server.steps
+        server.latency = LatencyStats()
+        timed, seconds, wall = _http_clients(port, [p[:EP_TIME_FRAMES] for p in payloads],
+                                             query="")
+        steps = server.steps - steps0
+        server_lat = server.latency.snapshot()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+        thread.join(timeout=10)
+    check(not thread.is_alive(), "the HTTP server thread did not stop")
+
+    model = server.det.model
+    ref = StreamingDetector(model, num_streams=EP_LANES)
+    worst = 0.0
+    for s, got in results.items():
+        lane = lanes[s]
+        for t in ref.state:
+            t.zero_()
+        buf = np.zeros((EP_LANES, 320, 320, 3), np.uint8)
+        active = np.zeros((EP_LANES,), np.float32)
+        active[lane] = 1.0
+        for i in range(EP_FRAMES):
+            if reset == (s, i):
+                ref.reset([lane])
+            buf[lane] = image.resize(image.decode(payloads[s][i]), 320)
+            out = ref.detect(buf, active=active)
+            b, sc, c = (t[lane].cpu().numpy() for t in (out.boxes, out.scores, out.classes))
+            dets = got[i]
+            check(len(dets) == len(sc) and [d["class"] for d in dets] == [names[int(k) - 1] for k in c],
+                  f"{what}: stream {s} frame {i}: classes differ from the sequential detector")
+            worst = max(worst, float(np.abs(np.array([d["score"] for d in dets]) - sc).max()),
+                        float(np.abs(np.array([d["box"] for d in dets]) - b * [640, 480, 640, 480]).max()))
+    log(f"  {what}: HTTP streams vs sequential detector: max|score or pixel-box diff| "
+        f"{worst:.3g} over {EP_STREAMS} streams x {EP_FRAMES} frames (bound {SERVE_SCORE_ATOL})")
+    check(worst <= SERVE_SCORE_ATOL, f"{what}: HTTP detections differ from the sequential detector")
+    a = np.sort(np.asarray(seconds)) * 1e3
+    q = lambda p: float(a[min(len(a) - 1, int(p * len(a)))])
+    fps = len(seconds) / wall
+    lat = {"n": len(a), "p50_ms": round(q(0.5), 3), "p99_ms": round(q(0.99), 3),
+           "max_ms": round(float(a[-1]), 3)}
+    n_dets = sum(len(d) for r in timed.values() for d in r) / len(seconds)
+    log(f"  {what}: HTTP {EP_LANES} clients x {EP_TIME_FRAMES} frames of 480x640 JPEG: {fps:.1f} "
+        f"frames/s in {steps} server steps, request latency (client, HTTP round trip) "
+        f"{json.dumps(lat)}, InferenceServer.submit {json.dumps(server_lat)}, {n_dets:.1f} "
+        f"detections a response (score >= 0.3) on {card}")
+    return launches, fps, lat, server_lat
+
+
+def host_resize_times(card):
+    """One 480x640 frame: data/image.py's resize to 320 and PIL's JPEG
+    decode on this host, with cv2.resize beside them where cv2 is installed
+    (bit-equality logged)."""
+    from tdrn_tpu_torch.data import image
+
+    img = np.random.default_rng(SEED + 21).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    data = image.encode(img)
+
+    def per_call(fn, n=50):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    out = {"resize_ms": per_call(lambda: image.resize(img, 320)),
+           "decode_ms": per_call(lambda: image.decode(data))}
+    try:
+        import cv2
+    except ImportError:
+        out["cv2_resize_ms"], same = None, "cv2 absent"
+    else:
+        out["cv2_resize_ms"] = per_call(lambda: cv2.resize(img, (320, 320)))
+        same = f"bit-equal to cv2 {cv2.__version__}: " + str(
+            bool(np.array_equal(image.resize(img, 320), cv2.resize(img, (320, 320)))))
+    log(f"  host, one 480x640 frame: data/image.py resize to 320 {out['resize_ms']:.3f} ms, PIL "
+        f"JPEG decode {out['decode_ms']:.3f} ms, cv2.resize {out['cv2_resize_ms']} ms ({same}); "
+        f"{os.cpu_count()} host cores, torch threads {__import__('torch').get_num_threads()}, "
+        f"on {card}")
+    return out
+
+
+def _mini_voc(root, n=16):
+    """A VOC2007 test split of n seeded 375x500 JPEGs with 1-3 boxes each."""
+    from tdrn_tpu_torch.data import VOC_CLASSES, image
+
+    rng = np.random.default_rng(SEED + 22)
+    base = os.path.join(root, "VOC2007")
+    for d in ("JPEGImages", "Annotations", os.path.join("ImageSets", "Main")):
+        os.makedirs(os.path.join(base, d), exist_ok=True)
+    ids = [f"{i:06d}" for i in range(n)]
+    for img_id in ids:
+        image.imwrite(os.path.join(base, "JPEGImages", img_id + ".jpg"),
+                      rng.integers(0, 256, (375, 500, 3), dtype=np.uint8))
+        objs = ""
+        for _ in range(int(rng.integers(1, 4))):
+            x, y = rng.integers(1, 300), rng.integers(1, 200)
+            objs += (f"<object><name>{VOC_CLASSES[int(rng.integers(0, 20))]}</name>"
+                     f"<difficult>0</difficult><bndbox><xmin>{x}</xmin><ymin>{y}</ymin>"
+                     f"<xmax>{x + 150}</xmax><ymax>{y + 120}</ymax></bndbox></object>")
+        with open(os.path.join(base, "Annotations", img_id + ".xml"), "w") as f:
+            f.write(f"<annotation>{objs}</annotation>")
+    with open(os.path.join(base, "ImageSets", "Main", "test.txt"), "w") as f:
+        f.write("\n".join(ids) + "\n")
+
+
+def _mini_vid(root, snippets=2, frames=8):
+    """An ILSVRC VID val split of seeded 480x640 JPEG snippets, one moving
+    object (track 0) a frame."""
+    from tdrn_tpu_torch.data import image
+    from tdrn_tpu_torch.data.vid import VID_WNID_CLASSES
+
+    rng = np.random.default_rng(SEED + 23)
+    for s in range(snippets):
+        data = os.path.join(root, "Data", "VID", "val", f"snip{s}")
+        ann = os.path.join(root, "Annotations", "VID", "val", f"snip{s}")
+        os.makedirs(data, exist_ok=True)
+        os.makedirs(ann, exist_ok=True)
+        for f in range(frames):
+            image.imwrite(os.path.join(data, f"{f:06d}.JPEG"),
+                          rng.integers(0, 256, (480, 640, 3), dtype=np.uint8))
+            x = 40 + 20 * f * (s + 1)
+            with open(os.path.join(ann, f"{f:06d}.xml"), "w") as fh:
+                fh.write(f"<annotation><object><trackid>0</trackid><name>{VID_WNID_CLASSES[s][0]}"
+                         f"</name><bndbox><xmin>{x}</xmin><ymin>60</ymin><xmax>{x + 200}</xmax>"
+                         f"<ymax>300</ymax></bndbox></object></annotation>")
+
+
+def entry_points(torch, counters, card):
+    """The inference entry points at full width: a port checkpoint of
+    VID_320 (conv stem, ConvGRU, 256 TCB channels; seeded random weights)
+    written through train/checkpoint.py, restored by load_inference_model as
+    fused2 bf16 and as int8 (a scales file calibrated on 8 seeded frames),
+    each bit-equal to the model built directly and graphed against eager at
+    S=16; serve_torch.py over HTTP on each; eval_torch.py on a synthetic
+    mini-VOC and mini-VID (--temporal against run_streaming)."""
+    from tdrn_tpu_torch.config import VID_320, VOC_320
+    from tdrn_tpu_torch.inference import load_inference_model
+    from tdrn_tpu_torch.models.detector import build_detector
+    from tdrn_tpu_torch.ops.preprocess import preprocess_batch
+    from tdrn_tpu_torch.utils.precision import apply_inference_precision
+    from tdrn_tpu_torch.utils.quantize import (apply_int8_backbone, calibrate_act_scales,
+                                               load_act_scales, save_act_scales)
+
+    work = os.path.join(HERE, "build", "entry_points")
+    ck = os.path.join(work, "vid_320")
+    times, out = {}, {}
+    t0 = time.perf_counter()
+    sd = _write_checkpoint(ck, VID_320, EP_META, SEED)
+    times["write checkpoint"] = time.perf_counter() - t0
+    frames = torch.from_numpy(np.random.default_rng(SEED + 24).integers(
+        0, 256, (4, STREAMS, 320, 320, 3), dtype=np.uint8))
+
+    t0 = time.perf_counter()
+    fused2 = load_inference_model(ck, stem="fused2", precision="bf16", verbose=False)
+    check(fused2.step == 1 and fused2.meta == EP_META and fused2.cfg.name == "vid_320",
+          "restored step, meta or config")
+    direct = build_detector(VID_320, stem="fused2")
+    direct.load_state_dict(sd)
+    direct = apply_inference_precision(direct, "bf16")
+    _raw_equal(torch, fused2.model, direct, frames[0].cuda(), "restored fused2 bf16")
+    del direct
+    _, out["launches_fused2"], out["held_fused2"] = drive_graphed(
+        torch, counters, fused2.model, frames.numpy(), (1, 5), (2, 3), "restored fused2 bf16",
+        prefilter=None, per_step=EP_FUSED2)
+    times["restore fused2 bf16, held, graphed"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    bf16 = load_inference_model(ck, precision="bf16", verbose=False)
+    calib = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 255, (8, 320, 320, 3), dtype=np.uint8)).cuda()
+    scales = calibrate_act_scales(bf16.model, preprocess_batch(calib, VID_320, torch.bfloat16),
+                                  tcb=True, gru=True)
+    scales_path = os.path.join(work, "scales.json")
+    save_act_scales(scales_path, scales)
+    int8 = load_inference_model(ck, precision="int8", int8_scales=scales_path, verbose=False)
+    nq = n_qconvs(int8.model)
+    check(nq == 37, f"restored int8 has {nq} QConvs, expected 37")
+    direct = apply_int8_backbone(bf16.model, act_scales=load_act_scales(scales_path))
+    _raw_equal(torch, int8.model, direct, frames[0].cuda(), "restored int8")
+    del direct, bf16
+    _, out["launches_int8"], out["held_int8"] = drive_graphed(
+        torch, counters, int8.model, frames.numpy(), (1, 5), (2, 3), "restored int8",
+        prefilter=None, per_step={**EP_INT8, "qconv": nq})
+    times["scales, restore int8, held, graphed"] = time.perf_counter() - t0
+
+    out["host"] = host_resize_times(card)
+    for name, argv, per_step in (
+            ("fused2_bf16", ["--stem", "fused2", "--precision", "bf16"], EP_FUSED2),
+            ("int8", ["--precision", "int8", "--int8_scales", scales_path],
+             {**EP_INT8, "qconv": nq})):
+        t0 = time.perf_counter()
+        launches, fps, lat, server_lat = http_serving(
+            torch, counters, ["--checkpoint", ck] + argv, card, f"serve_torch.py {name}", per_step)
+        out[f"http_{name}"] = dict(frames_per_s=fps, latency=lat, submit_latency=server_lat)
+        out[f"launches_http_{name}"] = launches
+        times[f"serve_torch.py {name}"] = time.perf_counter() - t0
+
+    import eval_torch
+    from tdrn_tpu_torch.data import image
+    from tdrn_tpu_torch.data.vid import VIDDetection
+    from tdrn_tpu_torch.eval.runner import finalize, run_streaming
+    from tdrn_tpu_torch.inference import StreamingDetector
+
+    t0 = time.perf_counter()
+    voc_ck = os.path.join(work, "voc_320")
+    _write_checkpoint(voc_ck, VOC_320, {**EP_META, "dataset": "voc_320", "temporal": False},
+                      SEED + 1)
+    _mini_voc(os.path.join(work, "mini_voc"))
+    aps, _ = eval_torch.main(["--data_root", os.path.join(work, "mini_voc"),
+                              "--checkpoint", voc_ck, "--batch_size", "16"])
+    check(np.isfinite(aps["mAP"]), f"eval_torch.py VOC mAP {aps['mAP']}")
+    out["voc_map"] = aps["mAP"]
+    times["eval_torch.py mini-VOC"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    vid_root = os.path.join(work, "mini_vid")
+    _mini_vid(vid_root)
+    aps, dets = eval_torch.main(["--data_root", vid_root, "--checkpoint", ck, "--temporal",
+                                 "--motion_breakdown", "--batch_size", "2"])
+    check(np.isfinite(aps["mAP"]), f"eval_torch.py VID mAP {aps['mAP']}")
+    ds = VIDDetection(vid_root, "val")
+    snippets = [[(f"{rel}/{stem}", (480, 640), image.resize(ds._load_frame(rel, stem)[0], 320))
+                 for stem in stems] for rel, stems in ds.snippets]
+    model = load_inference_model(ck, temporal=True, verbose=False).model
+    want = finalize(run_streaming(StreamingDetector(model, num_streams=2), snippets, 0.01,
+                                  progress_every=0))
+    check(dets.keys() == want.keys(), "eval_torch.py --temporal: other classes than run_streaming")
+    worst = 0.0
+    for ci in want:
+        check(dets[ci].keys() == want[ci].keys(), f"class {ci}: other frames than run_streaming")
+        for k, (b, sc) in want[ci].items():
+            check(dets[ci][k][0].shape == b.shape, f"class {ci} frame {k}: other detections")
+            worst = max(worst, float(np.abs(dets[ci][k][1] - sc).max(initial=0)),
+                        float(np.abs(dets[ci][k][0] - b).max(initial=0)))
+    log(f"  eval_torch.py --temporal vs run_streaming on the same frames: max|diff| {worst:.3g} "
+        f"(bound {SERVE_SCORE_ATOL}); mAP {aps['mAP']:.4f}, "
+        + ", ".join(f"{k} {v:.4f}" for k, v in aps.items() if k.startswith("mAP(")))
+    check(worst <= SERVE_SCORE_ATOL, "eval_torch.py --temporal differs from run_streaming")
+    out["vid_map"] = aps["mAP"]
+    times["eval_torch.py mini-VID --temporal"] = time.perf_counter() - t0
+    log("  entry points, seconds by sub-step: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
+    return fused2.model, int8.model, out
+
+
+
 def int8_model(torch, cfg, **build):
     """The seeded random model in the resident-bf16 profile and its int8
     copy: calibrated with tcb and gru on 8 seeded uint8 frames (RandomState(1),
@@ -1857,6 +2257,10 @@ def main() -> int:
     log("SSD baseline (VOC_320, full width, fp32):")
     ssd_launches, ssd_checks = ssd_path(torch, counters16, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    log("entry points at VID_320 (checkpoint restore, serve_torch.py over HTTP, eval_torch.py):")
+    ep_fused2, ep_int8, ep = entry_points(torch, counters8, card)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     # Every timing runs before any profiling: a profiler session leaves host
     # overhead behind.
@@ -1931,6 +2335,13 @@ def main() -> int:
         torch, lambda: StreamingDetector(model_r8, num_streams=STREAMS, prefilter=512), frames_r,
         list(K12) + ["qconv"], "ResNet-101 vid_512 int8", per_step={"qconv": len(calls512)},
         banned=QUANTIZE_PASSES)
+    per_step["entry_fused2_bf16"] = replayed_kernel_counts(
+        torch, lambda: StreamingDetector(ep_fused2, num_streams=STREAMS), frames16, names8,
+        "restored fused2 bf16 (entry points)", per_step=EP_FUSED2)
+    per_step["entry_int8"] = replayed_kernel_counts(
+        torch, lambda: StreamingDetector(ep_int8, num_streams=STREAMS), frames8, names8,
+        "restored int8 (entry points)", per_step={**EP_INT8, "qconv": n_qconvs(ep_int8)},
+        banned=QUANTIZE_PASSES)
     t0 = time.perf_counter()
     log("the other stems and cells at vid_320 (resident bf16, S=4), graphed:")
     variant_launches, variant_steps, variant_held = variant_paths(torch, counters16, list(K12))
@@ -1961,7 +2372,10 @@ def main() -> int:
              "timed", "step_totals")
     paths = {"resnet101_512": resnet_launches, "resnet101_group_512": group_launches,
              "ssd_320": ssd_launches, **variant_launches, "int8_vid320": int8_launches,
-             "int8_resnet101_512": r8_launches, **v8_launches}
+             "int8_resnet101_512": r8_launches, **v8_launches,
+             "entry_fused2_bf16": ep["launches_fused2"], "entry_int8": ep["launches_int8"],
+             "entry_http_fused2_bf16": ep["launches_http_fused2_bf16"],
+             "entry_http_int8": ep["launches_http_int8"]}
     # A kernel's own main path: bf16 serving for K1-K4, the VID_320
     # int8 path for K5 (its library_ms is per shape, in chiprun_out/k5_shapes.json).
     own = lambda r: "int8_vid320" if r["wrapper"] == "qconv" else "bf16_serving"
@@ -1983,6 +2397,7 @@ def main() -> int:
     log(f"checks against the CPU: ResNet-101 {json.dumps(resnet_checks)}, SSD {json.dumps(ssd_checks)}")
     log(f"int8 paths against the CPU and the bf16 profile: VID_320 {json.dumps(int8_checks)}, "
         f"ResNet-101 vid_512 {json.dumps(r8_checks)}, {json.dumps(v8_checks)}")
+    log(f"entry points: {json.dumps({k: v for k, v in ep.items() if not k.startswith('launches')})}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

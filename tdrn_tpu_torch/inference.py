@@ -17,17 +17,21 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from tdrn_tpu_torch import _build
-from tdrn_tpu_torch.models.detector import TDRN
+from tdrn_tpu_torch import _build, weights
+from tdrn_tpu_torch.config import DetectorConfig, get_config
+from tdrn_tpu_torch.models.detector import TDRN, build_detector
 from tdrn_tpu_torch.ops.detection import detect_topk
 from tdrn_tpu_torch.ops.nms import TopDetections
 from tdrn_tpu_torch.ops.preprocess import preprocess_batch
 from tdrn_tpu_torch.ops.priors import prior_boxes
+from tdrn_tpu_torch.train import checkpoint
+from tdrn_tpu_torch.utils.precision import apply_inference_precision
+from tdrn_tpu_torch.utils.quantize import apply_int8_backbone, load_act_scales
 
 
 def capture(fn, device, after=None):
@@ -300,3 +304,117 @@ def make_single_image_forward(
         return detect_topk(preds, prior_boxes(cfg, x.device), cfg, k)
 
     return run
+
+
+class LoadedModel(NamedTuple):
+    model: TDRN
+    cfg: DetectorConfig
+    step: int
+    meta: dict
+
+
+def _is_temporal(path: str) -> bool:
+    return path.split(" ")[0].split(".")[0] == "temporal"
+
+
+def load_inference_model(
+    checkpoint_dir: str,
+    *,
+    dataset: Optional[str] = None,
+    backbone: Optional[str] = None,
+    temporal: Optional[bool] = None,
+    stem: Optional[str] = None,
+    temporal_cell: Optional[str] = None,
+    tcb_channels: Optional[int] = None,
+    backbone_norm: Optional[str] = None,
+    dtype: torch.dtype = torch.float32,
+    precision: Optional[str] = None,
+    int8_scales: Optional[str] = None,
+    random_init: bool = False,
+    seed: int = 0,
+    verbose: bool = True,
+    dataset_fallback: str = "voc_320",
+    device=None,
+) -> LoadedModel:
+    """Build a detector for inference from a checkpoint directory
+    (train/checkpoint.py's layout), on ``device`` (CUDA unless "cpu").
+
+    Model-construction flags default to the directory's ``model_meta.json``;
+    explicit keyword arguments override it. The params are grafted onto a
+    seeded template (weights.load_random_params) subtree by subtree: a
+    temporal checkpoint loads into a non-temporal model and the other way
+    round, the temporal subtree reported, not fatal; any other subtree
+    absent or of another shape raises ValueError.
+
+    precision="bf16" converts to the resident-bf16 profile after the
+    restore (utils/precision.py); "int8" is bf16 with the quantized backbone
+    (utils/quantize.py) on the activation scales in the json file
+    ``int8_scales``. The checkpoint itself stays fp32.
+    """
+    # Only reads: a random_init caller must not create checkpoint directories.
+    meta = checkpoint.load_meta(checkpoint_dir) or {}
+
+    def pick(cli, key, default):
+        return cli if cli is not None else meta.get(key, default)
+
+    cfg = get_config(pick(dataset, "dataset", dataset_fallback))
+    backbone_name = pick(backbone, "backbone", "vgg16")
+    # FrozenBN and GroupNorm resnets have identical param trees, so a wrong
+    # norm restores silently and computes wrong activations.
+    if backbone_name == "resnet101" and backbone_norm is None and "backbone_norm" not in meta:
+        print(
+            "WARNING: resnet checkpoint meta lacks 'backbone_norm'; assuming "
+            "'frozen'. A GroupNorm-trained checkpoint restores into a FrozenBN "
+            "model without error but computes garbage — pass backbone_norm "
+            "explicitly (CLI --backbone_norm) if this checkpoint used "
+            "--backbone_norm group."
+        )
+    model = build_detector(
+        cfg,
+        backbone=backbone_name,
+        temporal=bool(pick(temporal, "temporal", True)),
+        stem=pick(stem, "stem", "conv"),
+        temporal_cell=pick(temporal_cell, "temporal_cell", "convgru"),
+        tcb_channels=int(pick(tcb_channels, "tcb_channels", 256)),
+        backbone_norm=pick(backbone_norm, "backbone_norm", "frozen"),
+        width_mult=float(meta.get("width_mult", 1.0)),
+        dtype=dtype,
+        device=device,
+    )
+    weights.load_random_params(model, seed)
+
+    def apply_precision(model):
+        if precision == "int8":
+            if int8_scales is None:
+                raise ValueError(
+                    "precision='int8' needs int8_scales (calibrate offline: "
+                    "eval_torch.py --precision int8 --save_scales <path>)"
+                )
+            model = apply_inference_precision(model, "bf16")
+            return apply_int8_backbone(model, act_scales=load_act_scales(int8_scales))
+        return apply_inference_precision(model, precision)
+
+    if random_init:
+        return LoadedModel(apply_precision(model), cfg, 0, meta)
+    out = checkpoint.restore_params(checkpoint_dir, model.state_dict())
+    if out is None:
+        raise FileNotFoundError(f"no checkpoint found in {checkpoint_dir}")
+    params, missing, extra = out
+    # Only the temporal subtree may legitimately stay at its template
+    # (clip-trained <-> single-frame eval). Anything else means the model was
+    # built with the wrong geometry: randomly initialized heads would
+    # silently produce garbage.
+    bad = [m for m in missing if not _is_temporal(m)]
+    if bad:
+        raise ValueError(
+            f"checkpoint/model mismatch: {len(bad)} non-temporal subtree(s) "
+            f"absent or shape-mismatched in {checkpoint_dir}: {bad[:6]} — "
+            "pass the matching --dataset/--backbone (or fix model_meta.json)"
+        )
+    if verbose and (missing or extra):
+        print(
+            f"restore: {len(missing)} template subtree(s) kept at init "
+            f"{missing[:4]}, {len(extra)} checkpoint subtree(s) unused {extra[:4]}"
+        )
+    model.load_state_dict(params, strict=True)
+    return LoadedModel(apply_precision(model), cfg, checkpoint.latest_step(checkpoint_dir) or 0, meta)

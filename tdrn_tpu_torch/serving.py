@@ -20,6 +20,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from tdrn_tpu_torch.data import image
+
 
 class _Pending:
     __slots__ = ("frame", "event", "result")
@@ -99,17 +101,15 @@ class InferenceServer:
     # ------------------------------------------------------------- client API
     def _fit(self, frame_u8: np.ndarray) -> np.ndarray:
         if frame_u8.shape[:2] != (self.size, self.size):
-            import cv2
-
-            frame_u8 = cv2.resize(frame_u8, (self.size, self.size))
+            frame_u8 = image.resize(np.asarray(frame_u8, np.uint8), self.size)
         return frame_u8.astype(np.uint8)
 
     def submit(self, stream_id: str, frame_u8: np.ndarray, timeout: float = 120.0):
         """Blocking detect for one frame of one stream.
 
         frame_u8: (H, W, 3) uint8 RGB; a frame that is not size x size is
-        resized on the host (cv2). Returns (boxes01 (K,4), scores (K,),
-        classes (K,)) as numpy.
+        resized on the host (data/image.py, equal to cv2.resize). Returns
+        (boxes01 (K,4), scores (K,), classes (K,)) as numpy.
         """
         req = _Pending(self._fit(frame_u8))
         t0 = time.monotonic()

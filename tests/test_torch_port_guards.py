@@ -1,5 +1,6 @@
 """Rules of the port that hold without a GPU: it imports no JAX and nothing of
-tdrn_tpu (its package, bench_torch.py and tools/device_bench_torch.py); its
+tdrn_tpu (its package, bench_torch.py, tools/device_bench_torch.py and the
+*_torch.py CLIs), and no cv2 outside live_torch.py's own function; its
 entry points refuse to run on a CUDA-less machine unless asked for the CPU;
 the streaming step's path holds no host sync, which would break its CUDA
 graph capture; chunk, fold-mean, pad-stem and every backbone, norm, stem,
@@ -40,20 +41,26 @@ def _modules():
 
 
 # The port's scripts at the root and under tools/ (they import torch and
-# tdrn_tpu_torch at their top level).
-SCRIPTS = ("bench_torch", "tools.device_bench_torch")
+# tdrn_tpu_torch at their top level). tools/orbax_to_torch.py bridges the two
+# packages and is not one of them.
+CLIS = ("serve_torch", "test_torch", "eval_torch", "live_torch", "profile_trace_torch")
+SCRIPTS = ("bench_torch", "tools.device_bench_torch") + CLIS
 
 
 def test_import_leaves_out_jax_and_tdrn_tpu():
     mods = sorted(_modules())
     assert "tdrn_tpu_torch.inference" in mods and "tdrn_tpu_torch.models.detector" in mods
     assert "tdrn_tpu_torch.eval.runner" in mods and "tdrn_tpu_torch.eval.voc_eval" in mods
+    for m in ("inference", "train.checkpoint", "data.image", "data.voc", "data.vid",
+              "eval.motion", "utils.logging"):
+        assert f"tdrn_tpu_torch.{m}" in mods, m
     mods += SCRIPTS
     code = (
         "import sys\n"
         + "".join(f"import {m}\n" for m in mods)
         + "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'tdrn_tpu' or m.startswith('tdrn_tpu.')]\n"
+        " or m == 'tdrn_tpu' or m.startswith('tdrn_tpu.') or m in ('cv2', 'orbax')"
+        " or m.startswith('orbax.')]\n"
         "print(bad)\n"
     )
     out = subprocess.run(
@@ -65,21 +72,48 @@ def test_import_leaves_out_jax_and_tdrn_tpu():
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+tdrn_tpu(\.|\s|$)|from\s+tdrn_tpu(\.|\s))",
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+tdrn_tpu(\.|\s|$)|from\s+tdrn_tpu(\.|\s)"
+    r"|import\s+orbax\b|from\s+orbax\b)",
     re.M,
 )
 
 
-def test_source_names_no_jax_import():
-    scripts = ("chip_smoke.py", "chip_compare.py", "bench_torch.py", "tools/device_bench_torch.py")
-    for path in [os.path.join(ROOT, f) for f in scripts] + [
+def _port_sources():
+    scripts = ("chip_smoke.py", "chip_compare.py", "bench_torch.py",
+               "tools/device_bench_torch.py") + tuple(f"{c}.py" for c in CLIS)
+    return [os.path.join(ROOT, f) for f in scripts] + [
         os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")
-    ]:
+    ]
+
+
+def test_source_names_no_jax_import():
+    for path in _port_sources():
         with open(path) as fh:
             hit = _FORBIDDEN.search(fh.read())
         assert hit is None, f"{path}: {hit.group(0)!r}"
     assert _FORBIDDEN.search("from tdrn_tpu_torch.ops import nms") is None
     assert _FORBIDDEN.search("import tdrn_tpu.ops") is not None
+    assert _FORBIDDEN.search("import orbax.checkpoint as ocp") is not None
+
+
+_CV2 = re.compile(r"^([ \t]*)(import\s+cv2\b|from\s+cv2\b)", re.M)
+# Inside a function only: live_torch.py (video capture, writing and drawing)
+# and chip_smoke.py (cv2.resize timed beside the port's, where cv2 exists).
+_CV2_IN_FUNCTION = ("live_torch.py", "chip_smoke.py")
+
+
+def test_host_path_needs_no_cv2():
+    """The serve/test/eval path decodes and resizes with data/image.py: no
+    port module and no CLI imports cv2, and no script at module level."""
+    for path in _port_sources():
+        hits = _CV2.findall(open(path).read())
+        if os.path.basename(path) in _CV2_IN_FUNCTION:
+            assert all(indent for indent, _ in hits), f"{path}: cv2 at module level"
+        else:
+            assert not hits, f"{path}: imports cv2"
+    assert any(_CV2.findall(open(os.path.join(ROOT, "live_torch.py")).read()))
+    assert _CV2.findall("\n\nimport cv2") == [("", "import cv2")]
+    assert _CV2.search("    import cv2") and not _CV2.search("import cv2x")
 
 
 # Calls that wait for the card or read its values on the host: any of them on
