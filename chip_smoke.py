@@ -165,6 +165,30 @@
      a 2-snippet mini-VID (--temporal --motion_breakdown), written in the
      call: finite mAP; the --temporal detections against run_streaming on
      the same frames (1e-5); each sub-step's seconds logged.
+8d. Training (train/, data/, train_torch.py, tools/train_bench_torch.py),
+   after the K5 phase; no kernel of the port runs in a train step:
+   - card against host: one VID_320 clip step at full width (VGG-16, conv
+     stem, ConvGRU; B=2, T=2, fp32, TF32 off) on the card and on its host
+     CPU from the same seeded params (weights.init_weights) and batch: loss
+     within 1e-4 relative, num_pos_arm equal, the gradient's global
+     relative difference within 1e-3; num_pos_odm and the mined negatives
+     of frame 0 logged;
+   - train_torch.py in this process on a mini VID (clip mode, T=8, B=2) and
+     a mini VOC (batch 8) written in the call: 3 steps and a save, the
+     restored train state bit-equal to the saved one, a --resume ("resumed
+     at step 3"); a --bf16 --remat clip run; the trained checkpoint read by
+     load_inference_model bit-equal in raw predictions to the in-memory
+     params; a --qat run on scales calibrated (tcb, gru) on 8 seeded frames,
+     served with --precision int8 on the same scales: 37 QConvs, K5 37 times
+     and K2 once a replayed step by the profiler's kernel events;
+   - 20 bf16 clip steps on one fixed VID_320 batch: the loss must fall below
+     0.9 of the first;
+   - times (cuDNN TF32 on): tools/train_bench_torch.py at voc_320 b32 fp32
+     and bf16 and vid_320 clip T=8 b4 with and without --remat (ms/step,
+     images/s, peak memory), a torch.profiler breakdown of the clip step by
+     part and kernel kind (chiprun_out/profile_train_vid320_clip.txt), the
+     host loader's images/s at batch 32 and train_torch.py's at voc_320 b32;
+     the numbers also go to chiprun_out/training.json.
 9. Prints {"kernels": [...]} (K5's entry holds the VID_320 int8 step's sum
    and each path's; its per-shape rows go to chiprun_out/k5_shapes.json)
    and, last, {"ok": true, "device": {...}}.
@@ -1713,16 +1737,16 @@ def _mini_voc(root, n=16):
         f.write("\n".join(ids) + "\n")
 
 
-def _mini_vid(root, snippets=2, frames=8):
-    """An ILSVRC VID val split of seeded 480x640 JPEG snippets, one moving
-    object (track 0) a frame."""
+def _mini_vid(root, snippets=2, frames=8, split="val"):
+    """An ILSVRC VID split (val by default) of seeded 480x640 JPEG snippets,
+    one moving object (track 0) a frame."""
     from tdrn_tpu_torch.data import image
     from tdrn_tpu_torch.data.vid import VID_WNID_CLASSES
 
     rng = np.random.default_rng(SEED + 23)
     for s in range(snippets):
-        data = os.path.join(root, "Data", "VID", "val", f"snip{s}")
-        ann = os.path.join(root, "Annotations", "VID", "val", f"snip{s}")
+        data = os.path.join(root, "Data", "VID", split, f"snip{s}")
+        ann = os.path.join(root, "Annotations", "VID", split, f"snip{s}")
         os.makedirs(data, exist_ok=True)
         os.makedirs(ann, exist_ok=True)
         for f in range(frames):
@@ -1853,6 +1877,332 @@ def entry_points(torch, counters, card):
     return fused2.model, int8.model, out
 
 
+
+# --- training: train/, data/, train_torch.py, tools/train_bench_torch.py ------
+
+TRAIN_LOSS_RTOL = 1e-4  # card against host, one fp32 VID_320 clip step
+TRAIN_GRAD_REL = 1e-3  # |g_card - g_host| / |g_host| over every parameter
+TRAIN_LEARN_STEPS = 20
+TRAIN_LEARN_DROP = 0.9  # the last loss below this share of the first (tests/test_loss.py)
+TRAIN_BENCH = (  # tools/train_bench_torch.py cells
+    ("voc_320 b32 fp32", ["--config", "voc_320", "--batch", "32"]),
+    ("voc_320 b32 bf16", ["--config", "voc_320", "--batch", "32", "--bf16"]),
+    ("vid_320 clip T=8 b4", ["--clip", "--batch", "4", "--seq_len", "8"]),
+    ("vid_320 clip T=8 b4 remat", ["--clip", "--batch", "4", "--seq_len", "8", "--remat"]),
+)
+
+
+def _train_batch(torch, cfg, t, b, seed, g=8):
+    """A seeded (T, B) clip batch: mean-subtracted-range frames and 1-8
+    valid boxes of 0.1-0.45 a side per frame (CPU tensors)."""
+    from tdrn_tpu_torch.train import Targets
+
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-120.0, 130.0, (t, b, cfg.size, cfg.size, 3)).astype(np.float32)
+    xy = rng.uniform(0.05, 0.5, (t, b, g, 2))
+    boxes = np.concatenate([xy, np.minimum(xy + rng.uniform(0.1, 0.45, (t, b, g, 2)), 1.0)], -1)
+    labels = rng.integers(0, cfg.num_classes - 1, (t, b, g)).astype(np.int32)
+    valid = rng.random((t, b, g)) < 0.5
+    valid[..., 0] = True
+    return torch.from_numpy(x), Targets(torch.from_numpy(boxes.astype(np.float32)),
+                                        torch.from_numpy(labels), torch.from_numpy(valid))
+
+
+def _on(targets, dev):
+    return type(targets)(*(t.to(dev) for t in targets))
+
+
+def _mined_counts(torch, model, x0, tg0, cfg):
+    """Frame 0 from the zero state: the ARM and ODM negatives the loss mines
+    (train/loss.py's _mine_negatives, recorded)."""
+    from tdrn_tpu_torch.ops.priors import prior_boxes
+    from tdrn_tpu_torch.train import loss as L
+
+    got, orig = [], L._mine_negatives
+
+    def record(*a):
+        m = orig(*a)
+        got.append(int(m.sum()))
+        return m
+
+    L._mine_negatives = record
+    try:
+        with torch.no_grad():
+            preds, _ = model(x0, model.zero_state(x0.shape[0]))
+            _, metrics = L.refine_multibox_loss(preds, prior_boxes(cfg, x0.device), tg0, cfg)
+    finally:
+        L._mine_negatives = orig
+    return {"arm_neg": got[0], "odm_neg": got[1], "num_pos_arm": float(metrics["num_pos_arm"]),
+            "num_pos_odm": float(metrics["num_pos_odm"])}
+
+
+def train_card_vs_host(torch):
+    """One VID_320 clip step at full width (B=2, T=2, fp32, TF32 off) on the
+    card and on its host CPU (the same plain PyTorch path), from the same
+    params and batch; no weight decay or clip, so the first step's momentum
+    trace is the gradient."""
+    from tdrn_tpu_torch import weights
+    from tdrn_tpu_torch.config import VID_320
+    from tdrn_tpu_torch.models.detector import build_detector
+    from tdrn_tpu_torch.train import init_train_state, make_optimizer, make_train_step
+
+    model = build_detector(VID_320, device="cpu")
+    weights.init_weights(model, torch.Generator().manual_seed(SEED))
+    opt = make_optimizer(base_lr=1e-3, warmup_steps=1, weight_decay=0.0, grad_clip_norm=0.0)
+    x, tg = _train_batch(torch, VID_320, 2, 2, SEED + 30)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(dev)
+        step = make_train_step(m, opt, clip_mode=True)
+        t0 = time.perf_counter()
+        ts, met = step(init_train_state(m, opt), x.to(dev), _on(tg, dev))
+        grads = {k: v.cpu() for k, v in ts.opt_state.trace.items()}
+        secs = time.perf_counter() - t0
+        res[dev] = ({k: float(v) for k, v in met.items()}, grads, secs,
+                    _mined_counts(torch, m, x[0].to(dev), _on(type(tg)(*(t[0] for t in tg)), dev),
+                                  VID_320))
+        del m, step, ts
+    (mc, gc, sc, nc), (mh, gh, sh, nh) = res["cuda"], res["cpu"]
+    rel = abs(mc["loss"] - mh["loss"]) / abs(mh["loss"])
+    num = sum(float(((gc[k] - gh[k]) ** 2).sum()) for k in gh)
+    den = sum(float((gh[k] ** 2).sum()) for k in gh)
+    grad_rel = (num / den) ** 0.5
+    log(f"  card vs host, VID_320 clip step B=2 T=2 fp32: loss {mc['loss']:.6f} / {mh['loss']:.6f} "
+        f"(rel {rel:.3g}, bound {TRAIN_LOSS_RTOL}), num_pos_arm {mc['num_pos_arm']:.0f} / "
+        f"{mh['num_pos_arm']:.0f}, num_pos_odm {mc['num_pos_odm']:.2f} / {mh['num_pos_odm']:.2f} "
+        f"(clip means), |g_card - g_host| / |g_host| {grad_rel:.3g} (bound {TRAIN_GRAD_REL}); "
+        f"frame 0 card {json.dumps(nc)}, host {json.dumps(nh)}; step {sc:.2f} s on the card "
+        f"(first call), {sh:.2f} s on the host")
+    check(rel <= TRAIN_LOSS_RTOL, f"train step: card loss {mc['loss']} vs host {mh['loss']}")
+    check(mc["num_pos_arm"] == mh["num_pos_arm"], "train step: num_pos_arm differs card vs host")
+    check(grad_rel <= TRAIN_GRAD_REL, f"train step: gradient differs card vs host by {grad_rel}")
+    return dict(loss_card=mc["loss"], loss_host=mh["loss"], loss_rel=rel, grad_rel=grad_rel,
+                num_pos_odm=(mc["num_pos_odm"], mh["num_pos_odm"]), mined_card=nc, mined_host=nh)
+
+
+def _quiet(main, argv):
+    """main(argv) with its standard output kept: (its result, the text)."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = main(argv)
+    return res, out.getvalue()
+
+
+def _run_train(argv):
+    """train_torch.py's main in this process: (TrainState, last logged
+    metrics, its stdout)."""
+    import train_torch
+
+    (ts, logged), text = _quiet(train_torch.main, argv)
+    return ts, logged, text
+
+
+def _same_state(torch, a, b, what):
+    same = (a.step == b.step and a.opt_state.count == b.opt_state.count
+            and a.params.keys() == b.params.keys()
+            and all(torch.equal(a.params[k], b.params[k]) for k in a.params)
+            and all(torch.equal(a.opt_state.trace[k], b.opt_state.trace[k]) for k in a.params))
+    log(f"  {what}: {'bit-equal' if same else 'NOT bit-equal'} (step {b.step}, "
+        f"{len(b.params)} params and momentum traces)")
+    check(same, f"{what}: the restored train state differs from the saved one")
+
+
+def train_entry_points(torch, names):
+    """train_torch.py on the card at full width, on a mini VID (clip mode,
+    T=8, B=2) and a mini VOC (batch 8) written in the call: save, an exact
+    restore and a resume; a bf16 --remat clip run; the trained checkpoint
+    served bit-equal; a --qat run served int8 on the same scales with K5
+    and K2 counted a replayed step."""
+    import shutil
+
+    from tdrn_tpu_torch.config import VID_320
+    from tdrn_tpu_torch.inference import StreamingDetector, load_inference_model
+    from tdrn_tpu_torch.models.detector import build_detector
+    from tdrn_tpu_torch.ops.preprocess import preprocess_batch
+    from tdrn_tpu_torch.train.checkpoint import CheckpointManager
+    from tdrn_tpu_torch.utils.quantize import calibrate_act_scales, save_act_scales
+
+    work = os.path.join(HERE, "build", "training")
+    shutil.rmtree(work, ignore_errors=True)
+    vid_root, voc_root = os.path.join(work, "mini_vid"), os.path.join(work, "mini_voc")
+    _mini_vid(vid_root, split="train")
+    _mini_voc(voc_root)
+    common = ["--num_workers", "8", "--log_every", "1", "--warmup", "2"]
+    vid = common + ["--dataset", "vid_320", "--data_root", vid_root, "--clip", "--batch_size", "2"]
+    times, out = {}, {}
+
+    t0 = time.perf_counter()
+    ck = os.path.join(work, "vid_clip")
+    argv = vid + ["--save_folder", ck, "--save_every", "3"]
+    ts, logged, text = _run_train(argv + ["--max_iter", "3"])
+    check(ts.step == 3 and np.isfinite(logged["loss"]), f"train_torch.py clip: {logged}")
+    _same_state(torch, ts, CheckpointManager(ck).restore_latest(ts),
+                "train_torch.py vid_320 --clip, step 3 saved and restored")
+    ts, logged, text = _run_train(argv + ["--max_iter", "4", "--resume"])
+    check("resumed at step 3" in text and ts.step == 4, "train_torch.py --resume")
+    out["vid_clip_loss"] = logged["loss"]
+    times["vid_320 clip 3 steps, restore, resume to 4"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    loaded = load_inference_model(ck, verbose=False)
+    check(loaded.step == 4, f"load_inference_model step {loaded.step}")
+    direct = build_detector(VID_320)
+    direct.load_state_dict(ts.params)
+    frames = torch.from_numpy(np.random.default_rng(SEED + 31).integers(
+        0, 256, (4, 320, 320, 3), dtype=np.uint8)).cuda()
+    _raw_equal(torch, loaded.model, direct, frames, "trained checkpoint served (fp32)")
+    del loaded, direct
+    times["trained checkpoint served"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    _, logged, _ = _run_train(common + ["--dataset", "voc_320", "--data_root", voc_root,
+                                        "--image_sets", "2007:test", "--batch_size", "8",
+                                        "--save_folder", os.path.join(work, "voc"),
+                                        "--max_iter", "2"])
+    check(np.isfinite(logged["loss"]), f"train_torch.py voc_320: {logged}")
+    out["voc_loss"] = logged["loss"]
+    times["voc_320 b8 2 steps"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    _, logged, _ = _run_train(vid + ["--bf16", "--remat", "--save_folder",
+                                     os.path.join(work, "vid_bf16"), "--max_iter", "2"])
+    check(np.isfinite(logged["loss"]), f"train_torch.py --bf16 --remat: {logged}")
+    out["vid_bf16_remat_loss"] = logged["loss"]
+    times["vid_320 clip bf16 remat 2 steps"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    bf16 = load_inference_model(ck, precision="bf16", verbose=False)
+    calib = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 255, (8, 320, 320, 3), dtype=np.uint8)).cuda()
+    scales_path = os.path.join(work, "scales.json")
+    save_act_scales(scales_path, calibrate_act_scales(
+        bf16.model, preprocess_batch(calib, VID_320, torch.bfloat16), tcb=True, gru=True))
+    del bf16
+    qat_ck = os.path.join(work, "vid_qat")
+    _, logged, text = _run_train(vid + ["--qat", "--int8_scales", scales_path, "--init_from", ck,
+                                        "--save_folder", qat_ck, "--max_iter", "2"])
+    check("qat: fake-quantizing 37 convs" in text and np.isfinite(logged["loss"]),
+          f"train_torch.py --qat: {logged}")
+    out["vid_qat_loss"] = logged["loss"]
+    int8 = load_inference_model(qat_ck, precision="int8", int8_scales=scales_path, verbose=False)
+    nq = n_qconvs(int8.model)
+    check(nq == 37, f"the QAT checkpoint served int8 has {nq} QConvs, expected 37")
+    frames8 = torch.from_numpy(np.random.default_rng(SEED + 32).integers(
+        0, 256, (STREAMS, 320, 320, 3), dtype=np.uint8))
+    out["qat_int8_runs_per_replayed_step"] = replayed_kernel_counts(
+        torch, lambda: StreamingDetector(int8.model, num_streams=STREAMS), frames8, names,
+        "QAT checkpoint served int8", per_step={**EP_INT8, "qconv": nq}, banned=QUANTIZE_PASSES)
+    del int8
+    times["scales, --qat 2 steps, served int8 and counted"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    log("  train_torch.py, seconds by sub-step: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
+    return out, voc_root
+
+
+def train_learns(torch):
+    """TRAIN_LEARN_STEPS bf16 clip steps (VID_320, B=2, T=2) on one fixed
+    batch from seeded init_weights: the loss must fall."""
+    from tdrn_tpu_torch import weights
+    from tdrn_tpu_torch.config import VID_320
+    from tdrn_tpu_torch.models.detector import build_detector
+    from tdrn_tpu_torch.train import init_train_state, make_optimizer, make_train_step
+
+    model = build_detector(VID_320, device="cpu")
+    weights.init_weights(model, torch.Generator().manual_seed(SEED + 1))
+    model = model.cuda()
+    opt = make_optimizer(base_lr=1e-3, warmup_steps=1, milestones=(10 ** 9,))
+    step = make_train_step(model, opt, clip_mode=True, compute_dtype=torch.bfloat16)
+    x, tg = _train_batch(torch, VID_320, 2, 2, SEED + 33)
+    x, tg = x.cuda(), _on(tg, "cuda")
+    ts, losses = init_train_state(model, opt), []
+    for _ in range(TRAIN_LEARN_STEPS):
+        ts, met = step(ts, x, tg)
+        losses.append(float(met["loss"]))
+    log(f"  {TRAIN_LEARN_STEPS} bf16 clip steps on one batch: loss "
+        + " ".join(f"{v:.3f}" for v in losses))
+    check(bool(np.isfinite(losses).all()), "training: a non-finite loss")
+    check(losses[-1] < TRAIN_LEARN_DROP * losses[0],
+          f"training: the loss did not fall ({losses[0]:.4f} -> {losses[-1]:.4f})")
+    return losses
+
+
+def train_times(torch, card, voc_root):
+    """tools/train_bench_torch.py on each TRAIN_BENCH cell (cuDNN TF32 on,
+    PyTorch's default), a profiler breakdown of the vid_320 clip step, and
+    the images/s of train_torch.py's host loader at batch 32."""
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import train_bench_torch
+
+    from tdrn_tpu_torch.data import SSDAugmentation, VOCDetection
+    from tdrn_tpu_torch.data.loader import make_loader
+
+    res = {}
+    quiet = lambda argv: _quiet(train_bench_torch.main, argv)[0]
+    for what, argv in TRAIN_BENCH:
+        r = quiet(argv + ["--steps", "10", "--warmup", "3"])
+        res[what] = {k: r[k] for k in ("ms_per_step", "value", "steps_per_sec",
+                                       "peak_memory_gib", "loss")}
+        log(f"  train_bench_torch.py {what}: {r['ms_per_step']:.3f} ms/step, "
+            f"{r['value']:.1f} images/s, peak {r['peak_memory_gib']:.2f} GiB on {r['device']}")
+        torch.cuda.empty_cache()
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    prof = quiet(["--clip", "--batch", "4", "--seq_len", "8", "--steps", "5", "--warmup", "2",
+                  "--profile", os.path.join(out_dir, "profile_train_vid320_clip.txt")])
+    res["profile vid_320 clip T=8 b4"] = prof["profile_ms_a_step"]
+    log(f"  one vid_320 clip T=8 b4 step by part (ms, device time, torch.profiler): "
+        f"{json.dumps(prof['profile_ms_a_step'])}")
+    torch.cuda.empty_cache()
+
+    ds = VOCDetection(voc_root, image_sets=(("2007", "test"),),
+                      transform=SSDAugmentation(320, seed=SEED), seed=SEED)
+    loader = make_loader(ds, batch_size=32, num_workers=8, seed=SEED, pin_memory=True)
+    try:
+        next(loader)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            next(loader)
+        res["host loader images/s b32"] = 5 * 32 / (time.perf_counter() - t0)
+    finally:
+        loader.close()
+    _, logged, _ = _run_train(["--dataset", "voc_320", "--data_root", voc_root,
+                               "--image_sets", "2007:test", "--batch_size", "32",
+                               "--num_workers", "8", "--log_every", "3", "--max_iter", "6",
+                               "--save_folder", os.path.join(HERE, "build", "training", "voc32")])
+    res["train_torch.py voc_320 b32 images/s"] = 32 * logged["steps_per_sec"]
+    log(f"  host loader (8 threads, 375x500 JPEG, SSDAugmentation, pinned) "
+        f"{res['host loader images/s b32']:.1f} images/s at batch 32; train_torch.py voc_320 b32 "
+        f"fp32 steps 4-6: {res['train_torch.py voc_320 b32 images/s']:.1f} images/s on {card}")
+    with open(os.path.join(out_dir, "training.json"), "w") as f:
+        json.dump({"card": card, **res}, f, indent=1)
+    return res
+
+
+def training(torch, names, card):
+    """The training phase: card against host, train_torch.py end to end,
+    the loss falling, train -> serve, and the times. The checks run with
+    TF32 off (the timings before this phase turn it on), the times with
+    cuDNN's default."""
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    out = {"card_vs_host": train_card_vs_host(torch)}
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    out["entry_points"], voc_root = train_entry_points(torch, names)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    out["learn"] = train_learns(torch)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for cuDNN convs
+    t0 = time.perf_counter()
+    out["times"] = train_times(torch, card, voc_root)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
 
 def int8_model(torch, cfg, **build):
     """The seeded random model in the resident-bf16 profile and its int8
@@ -2359,6 +2709,11 @@ def main() -> int:
                      card)
     results.append(k5)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    log("training (train/, data/, train_torch.py, tools/train_bench_torch.py) at VID_320 and "
+        "VOC_320:")
+    train = training(torch, names8, card)
+    log(f"  (training {time.perf_counter() - t0:.1f} s)")
     if "--profile" in sys.argv[1:]:
         profile_step(torch, lambda: det_r.detect(frames_r), "profile_resnet101_512.txt")
         profile_step(torch, lambda: det.detect(frames), "profile.txt")
@@ -2398,6 +2753,7 @@ def main() -> int:
     log(f"int8 paths against the CPU and the bf16 profile: VID_320 {json.dumps(int8_checks)}, "
         f"ResNet-101 vid_512 {json.dumps(r8_checks)}, {json.dumps(v8_checks)}")
     log(f"entry points: {json.dumps({k: v for k, v in ep.items() if not k.startswith('launches')})}")
+    log(f"training: {json.dumps(train)}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,9 @@ Six inference-only settings mirror the flax fields of the same names:
 ``pad_stem`` (set by the transforms of utils/precision.py, which also rewrite
 conv1_1), and ``quant``, ``quant_tcb`` and ``quant_gru`` (set by
 utils/quantize.apply_int8_backbone, which turns the backbone's, the TCB's
-and the temporal cells' convs into int8 QConvs).
+and the temporal cells' convs into int8 QConvs). ``qat_scales`` is set by
+utils/quantize.apply_qat, whose copy runs those convs as FQConvs for
+quantization-aware training (:func:`split_qat_scales` groups its keys).
 """
 
 from __future__ import annotations
@@ -56,6 +58,22 @@ def build_backbone(name: str, in_channels: int = 3, width_mult: float = 1.0,
     if name == "resnet101":
         return ResNetBackbone(101, in_channels, width_mult=width_mult, norm=norm)
     raise ValueError(f"unknown backbone {name!r} (one of {BACKBONES})")
+
+
+def split_qat_scales(qat_scales):
+    """Split ((key, xscale), ...) into (backbone, tcb, gru) groups by the
+    utils/quantize.py key convention ("tcb{k}/..." and "gru{k}/..." prefixes;
+    everything else is a backbone conv)."""
+    backbone, tcb, gru = [], [], []
+    for k, v in qat_scales:
+        blk = k.split("/", 1)[0]
+        if blk.startswith("tcb") and blk[3:].isdigit():
+            tcb.append((k, v))
+        elif blk.startswith("gru") and blk[3:].isdigit():
+            gru.append((k, v))
+        else:
+            backbone.append((k, v))
+    return tuple(backbone), tuple(tcb), tuple(gru)
 
 
 class TDRN(nn.Module):
@@ -98,6 +116,7 @@ class TDRN(nn.Module):
         self.backbone_name = backbone
         self.temporal_cell = temporal_cell
         self.quant = self.quant_tcb = self.quant_gru = False
+        self.qat_scales = None  # set by utils/quantize.apply_qat
         self.chunk = int(chunk)
         self.fold_mean = bool(fold_mean)
         self.pad_stem = int(pad_stem)

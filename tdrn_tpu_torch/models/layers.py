@@ -5,6 +5,10 @@ computed in fp32, applied to the conv4_3 / conv5_3 feature maps.
 
 QConv: the int8 conv of the int8 serving profile (utils/quantize.py), on the
 K5 wrapper (ops/qconv.py).
+
+FQConv: its train-time twin for quantization-aware fine-tuning
+(utils/quantize.apply_qat): a plain conv whose input and kernel are snapped
+to QConv's int8 grids, with straight-through gradients.
 """
 
 from __future__ import annotations
@@ -36,6 +40,67 @@ def conv3x3(cin: int, cout: int, stride: int = 1, dilation: int = 1) -> nn.Conv2
 
 def conv1x1(cin: int, cout: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 1)
+
+
+def fake_quant_act(x: torch.Tensor, xscale: float) -> torch.Tensor:
+    """Straight-through fake-quant of activations to QConv's int8 grid.
+
+    Forward: dequantize(quantize(x)) with the static calibrated scale
+    ``xscale`` (max|input|), in fp32, cast back to x's dtype; backward: the
+    identity, through ``x + (q - x).detach()``."""
+    x32 = x.float()
+    q = torch.clamp(torch.round(x32 * (127.0 / xscale)), -127.0, 127.0) * (xscale / 127.0)
+    return (x32 + (q - x32).detach()).to(x.dtype)
+
+
+def fake_quant_kernel(w: torch.Tensor) -> torch.Tensor:
+    """Straight-through fake-quant of an OIHW conv kernel, symmetric per output
+    channel: step max|w| / 127 over each output channel's taps (axes 1-3,
+    the JAX package's HWIO axes 0-2), in fp32, cast back to w's dtype. The
+    step sits inside the detached part, so the backward is the identity."""
+    w32 = w.float()
+    ws = torch.clamp(w32.abs().amax(dim=(1, 2, 3), keepdim=True), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(w32 / ws), -127.0, 127.0) * ws
+    return (w32 + (q - w32).detach()).to(w.dtype)
+
+
+class FQConv(nn.Conv2d):
+    """Fake-quantized conv for QAT fine-tuning (the train-time twin of QConv).
+
+    Its parameters are an ``nn.Conv2d``'s (``weight``, ``bias``), so a QAT
+    checkpoint is a plain checkpoint that the int8 serving path quantizes
+    with the same scales file. The forward snaps the input to the static
+    ``xscale`` int8 grid and the kernel to the per-output-channel grid in
+    fp32 elementwise math (straight-through gradients), then convolves in
+    the kernel's dtype and adds the bias in it, as the JAX FQConv does.
+    ``xscale`` is a Python float, not a parameter or buffer.
+    """
+
+    def __init__(self, *args, xscale: float = 1.0, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.xscale = float(xscale)
+
+    @classmethod
+    def like(cls, conv: nn.Conv2d, xscale: float) -> "FQConv":
+        """An FQConv of ``conv``'s geometry, dtype and device (SAME padding,
+        square kernel) holding a copy of its weight and bias."""
+        k, s, d = conv.kernel_size[0], conv.stride[0], conv.dilation[0]
+        if conv.kernel_size != (k, k) or conv.padding != (d * (k - 1) // 2,) * 2 or conv.groups != 1:
+            raise ValueError(f"FQConv takes square SAME convs, got {conv}")
+        out = cls(conv.in_channels, conv.out_channels, k, stride=s, padding=conv.padding,
+                  dilation=d, xscale=xscale)
+        out = out.to(device=conv.weight.device, dtype=conv.weight.dtype)
+        out.load_state_dict(conv.state_dict())
+        return out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.weight.dtype
+        xq = fake_quant_act(x, self.xscale).to(dtype)
+        y = self._conv_forward(xq, fake_quant_kernel(self.weight), None)
+        return y + self.bias.to(dtype)[:, None, None]
+
+    def extra_repr(self) -> str:
+        return super().extra_repr() + f", xscale={self.xscale}"
 
 
 class QConv(nn.Module):
@@ -115,6 +180,6 @@ class QConv(nn.Module):
 
 
 def to_compute_dtype(x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
-    """x in the dtype ``conv`` computes in; a QConv quantizes its input from
-    fp32 itself, so it takes x as it is (as the JAX package's does)."""
-    return x if isinstance(conv, QConv) else x.to(conv.weight.dtype)
+    """x in the dtype ``conv`` computes in; a QConv or an FQConv quantizes its
+    input from fp32 itself, so it takes x as it is (as the JAX package's do)."""
+    return x if isinstance(conv, (QConv, FQConv)) else x.to(conv.weight.dtype)

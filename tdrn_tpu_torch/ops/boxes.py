@@ -1,7 +1,7 @@
 """Box geometry primitives (the port of ``tdrn_tpu/ops/boxes.py``).
 
 Conventions: ``xyxy`` corner form [x1, y1, x2, y2] and ``cxcywh`` center form,
-normalized to [0, 1]; decode uses the SSD variances (0.1, 0.2). The IoU here
+normalized to [0, 1]; encode and decode use the SSD variances (0.1, 0.2). The IoU here
 is the exact operation sequence the NMS kernel (csrc/nms_suppress.cu)
 repeats, so its keep mask is bit-equal to the plain version.
 """
@@ -44,6 +44,15 @@ def iou(a: Tensor, b: Tensor, eps: float = 0.0) -> Tensor:
     inter = intersect(a, b)
     union = area(a)[..., :, None] + area(b)[..., None, :] - inter
     return inter / union.clamp(min=eps if eps > 0 else 1e-12)
+
+
+def encode(matched: Tensor, priors: Tensor, variances=(0.1, 0.2)) -> Tensor:
+    """Encode (..., P, 4) xyxy ground-truth boxes matched to (..., P, 4)
+    cxcywh priors -> (..., P, 4) regression targets [dcx, dcy, dw, dh]."""
+    g = center_size(matched)
+    g_cxy = (g[..., :2] - priors[..., :2]) / (variances[0] * priors[..., 2:])
+    g_wh = torch.log(torch.clamp(g[..., 2:] / priors[..., 2:], min=1e-12)) / variances[1]
+    return torch.cat([g_cxy, g_wh], dim=-1)
 
 
 def decode(loc: Tensor, priors: Tensor, variances=(0.1, 0.2)) -> Tensor:

@@ -18,6 +18,9 @@ model whose convs are QConvs (models/layers.py) on the K5 kernel::
     model = apply_inference_precision(model, "bf16")
     model = apply_int8_backbone(model, calib_frames, tcb=True, gru=True)
 
+:func:`apply_qat` is its train-time twin: the same convs become FQConvs,
+fake-quantized on the same grids with straight-through gradients.
+
 Calibration reads the same tensors as the JAX package's captured
 intermediates, by forward hooks: each conv's output before its ReLU (a
 VGG conv's before the pool that follows), the ResNet norms' and blocks'
@@ -36,7 +39,7 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from tdrn_tpu_torch.models.layers import QConv
+from tdrn_tpu_torch.models.layers import FQConv, QConv
 from tdrn_tpu_torch.models.resnet import DEPTHS, resnet_conv_chain
 from tdrn_tpu_torch.models.temporal import cell_kind
 from tdrn_tpu_torch.models.vgg import QUANT_STEMS
@@ -314,6 +317,49 @@ def apply_int8_backbone(model, calib_frames: Any = None, headroom: float = 1.0,
         setattr(owner, leaf, QConv.like(getattr(owner, leaf), model.dtype))
     out.load_state_dict(quantize_backbone_params(model.state_dict(), act_scales), strict=True)
     out.quant, out.quant_tcb, out.quant_gru = True, bool(tcb), bool(gru)
+    return out
+
+
+def apply_qat(model, act_scales: Dict[str, float]):
+    """A copy of ``model`` for QAT fine-tuning on calibrated scales.
+
+    The train-time twin of :func:`apply_int8_backbone`: every conv the int8
+    serving profile would quantize becomes an FQConv (models/layers.py) on
+    the same grids (per-output-channel weight steps from the float weights,
+    the static activation scale from ``act_scales``), with straight-through
+    gradients. Which subsystems fake-quantize follows the keys present
+    (tcb, gru), as in the scales-file serving path. Parameter names and
+    shapes are unchanged, so the trainer runs the copy on the masters of
+    ``model`` (train/trainer.py) and checkpoints stay plain; serve the result
+    with ``--precision int8 --int8_scales <the same file>``. Refuses what the
+    JAX package's ``apply_qat`` refuses: a stem other than conv or s2d, an
+    unknown backbone, missing backbone keys, gru keys on a non-temporal
+    model or of the wrong cell kind, non-positive scales, and an int8 model.
+    """
+    name = _backbone(model)
+    if name == "vgg16":
+        if model.backbone.stem not in QUANT_STEMS:
+            raise ValueError("qat supports the conv/s2d stems only")
+    elif name != "resnet101":
+        raise ValueError(f"qat: unsupported backbone {name!r}")
+    if getattr(model, "quant", False):
+        raise ValueError("qat_scales and quant are mutually exclusive")
+    missing = sorted(set(expected_conv_keys(model)) - set(act_scales))
+    if missing:
+        shown = missing[:5] + (["..."] if len(missing) > 5 else [])
+        raise ValueError(f"qat scales missing convs for backbone {name!r}: {shown}")
+    if any(_is_gru_key(k) for k in act_scales) and not model.temporal_enabled:
+        raise ValueError("gru qat scales need a temporal model")
+    _validate_gru_keys(model, act_scales)
+    bad = {k: v for k, v in act_scales.items() if not float(v) > 0}
+    if bad:
+        raise ValueError(f"qat: non-positive activation scales {bad}")
+    out = copy.deepcopy(model)
+    for key, xscale in act_scales.items():
+        parent, _, leaf = module_path(key).rpartition(".")
+        owner = out.get_submodule(parent)
+        setattr(owner, leaf, FQConv.like(getattr(owner, leaf), float(xscale)))
+    out.qat_scales = tuple(sorted((k, float(v)) for k, v in act_scales.items()))
     return out
 
 

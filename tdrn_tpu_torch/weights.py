@@ -15,7 +15,11 @@ path joined with "." (leaf ``kernel`` -> ``weight``), and only layouts change:
           ``bias`` fp32.
 
 A torchvision ResNet checkpoint loads into the ResNet backbone through
-:func:`load_resnet_backbone` (BatchNorm folded into FrozenBN).
+:func:`load_resnet_backbone` (BatchNorm folded into FrozenBN), and a VGG-16
+checkpoint (the reduced-fc ``vgg16_reducedfc.pth`` layout or torchvision's
+``vgg16``) into the VGG backbone through :func:`load_vgg_backbone`.
+:func:`init_weights` draws a training model's initial weights from a
+``torch.Generator`` with the JAX package's initializers.
 """
 
 from __future__ import annotations
@@ -217,3 +221,113 @@ def load_resnet_backbone(model: torch.nn.Module, source):
     new, loaded, skipped = resnet_backbone_from_torchvision(sd, model.backbone.state_dict())
     model.backbone.load_state_dict(new, strict=True)
     return model, loaded, skipped
+
+
+# --- VGG-16 checkpoints -> the VGG backbone ---------------------------------
+#
+# ssd.pytorch's reduced-fc ``nn.Sequential`` (integer keys, conv6/conv7
+# included) or torchvision's ``vgg16`` (``features.<i>``, no conv6/conv7).
+# Both are OIHW like the port, so the kernels load as they are.
+
+_REDUCEDFC_MAP = {
+    0: "conv1_1", 2: "conv1_2",
+    5: "conv2_1", 7: "conv2_2",
+    10: "conv3_1", 12: "conv3_2", 14: "conv3_3",
+    17: "conv4_1", 19: "conv4_2", 21: "conv4_3",
+    24: "conv5_1", 26: "conv5_2", 28: "conv5_3",
+    31: "conv6", 33: "conv7",
+}
+_TORCHVISION_VGG_MAP = {i: n for i, n in _REDUCEDFC_MAP.items() if i < 31}
+
+
+def vgg_params_from_state_dict(sd) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Detect the layout and return {conv name: {"weight": OIHW, "bias"}}
+    (float32 CPU tensors) for the convs the state dict holds."""
+    if any(k.startswith("features.") for k in sd):
+        idx_map, prefix = _TORCHVISION_VGG_MAP, "features."
+    else:
+        idx_map, prefix = _REDUCEDFC_MAP, ""
+    out = {}
+    for idx, name in idx_map.items():
+        wk, bk = f"{prefix}{idx}.weight", f"{prefix}{idx}.bias"
+        if wk not in sd:
+            continue
+        out[name] = {"weight": torch.from_numpy(np.array(_numpy(sd[wk]), np.float32)),
+                     "bias": torch.from_numpy(np.array(_numpy(sd[bk]), np.float32))}
+    return out
+
+
+def load_vgg_backbone(model: torch.nn.Module, source, strict: bool = False):
+    """Load a VGG-16 checkpoint into ``model.backbone`` (VGG16Reduced).
+    ``source``: a state dict, or the path of a file ``torch.load`` reads.
+    Layers the model lacks or whose shape differs (a torchvision checkpoint
+    has no conv6/conv7; the s2d stem's conv1_1) are skipped, or raise under
+    ``strict``. Returns (model, loaded names, skipped names)."""
+    sd = source
+    if not isinstance(source, dict):
+        sd = torch.load(source, map_location="cpu", weights_only=True)
+        if hasattr(sd, "state_dict"):
+            sd = sd.state_dict()
+    backbone = model.backbone
+    loaded, skipped = [], []
+    for name, new in vgg_params_from_state_dict(sd).items():
+        conv = getattr(backbone, name, None)
+        if conv is None:
+            skipped.append(name)
+            continue
+        if tuple(conv.weight.shape) != tuple(new["weight"].shape):
+            if strict:
+                raise ValueError(f"{name}: shape {tuple(new['weight'].shape)} != "
+                                 f"{tuple(conv.weight.shape)}")
+            skipped.append(name)
+            continue
+        with torch.no_grad():
+            conv.weight.copy_(new["weight"])
+            conv.bias.copy_(new["bias"])
+        loaded.append(name)
+    if strict and skipped:
+        raise ValueError(f"unloaded layers: {skipped}")
+    return model, loaded, skipped
+
+
+# --- Initial weights for training -------------------------------------------
+
+
+def init_weights(model: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
+    """Draw the initial weights of a freshly built detector from ``generator``
+    with the JAX package's initializers: xavier-uniform conv kernels and zero
+    biases, except flax's default lecun-normal (truncated at 2 std) on the
+    layers built without an initializer (the ResNet stem and ``proj``
+    shortcuts, the TCB deconvs), and the temporal cells' pass-through init.
+    The L2Norm scales and the ResNet norms keep their built values. The
+    model and ``generator`` are on the CPU (move the model afterwards)."""
+    from tdrn_tpu_torch.models.temporal import TemporalPropagation
+
+    if any(p.device.type != "cpu" for p in model.parameters()):
+        raise ValueError("init_weights draws on the CPU: build the model with device='cpu'")
+
+    cells = set()
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if isinstance(mod, TemporalPropagation):
+                for cell in mod.children():
+                    cell.reset_parameters(generator=generator)
+                    cells.update(id(m) for m in cell.modules())
+                continue
+            if id(mod) in cells or not isinstance(mod, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                continue
+            leaf = name.rsplit(".", 1)[-1]
+            lecun = isinstance(mod, torch.nn.ConvTranspose2d) or (
+                name.startswith("backbone.") and leaf in ("stem", "proj"))
+            w = mod.weight
+            if lecun:
+                # flax variance_scaling(1, "fan_in", "truncated_normal"); the
+                # fan-in is the kernel's taps times its input channels.
+                cin = w.shape[0] if isinstance(mod, torch.nn.ConvTranspose2d) else w.shape[1]
+                std = float(np.sqrt(1.0 / (cin * w.shape[2] * w.shape[3]))) / 0.87962566103423978
+                torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+            else:
+                torch.nn.init.xavier_uniform_(w, generator=generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
+    return model

@@ -35,6 +35,7 @@ from tdrn_tpu_torch.ops.preprocess import preprocess_batch
 from tdrn_tpu_torch.train import checkpoint
 from tdrn_tpu_torch.utils import precision as tprec
 from tdrn_tpu_torch.utils import quantize as tq
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))

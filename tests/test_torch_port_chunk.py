@@ -32,6 +32,7 @@ from tdrn_tpu_torch.models.detector import TDRN, build_detector
 from tdrn_tpu_torch.ops.detection import RawPredictions
 from tdrn_tpu_torch.ops.preprocess import preprocess_batch
 from tdrn_tpu_torch.utils import precision as tprec
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SMALL = dict(tcb_channels=32, width_mult=0.125)
 # Raw predictions and state of a forward, port against JAX: fp32
@@ -47,9 +48,17 @@ DET_ATOL = 1e-5
 
 @functools.lru_cache(maxsize=None)
 def _params():
+    """The port's seeded weights (weights.load_random_params) in the JAX
+    layout, checked leaf by leaf against jax.eval_shape(model.init): a
+    jit(model.init) costs ~11 s on a CPU, eval_shape under 1 s."""
     model = j_build(jcfg.TINY_64, temporal=True, **SMALL)
+    tmodel = build_detector(tcfg.TINY_64, temporal=True, device="cpu", **SMALL)
+    tree = weights.params_to_jax(weights.load_random_params(tmodel, 0).state_dict())
     x = jnp.zeros((1, 64, 64, 3), jnp.float32)
-    return jax.tree.map(np.asarray, jax.jit(model.init)(jax.random.PRNGKey(0), x, None))
+    want = jax.eval_shape(model.init, jax.random.PRNGKey(0), x, None)
+    assert {p: v.shape for p, v in weights._flatten_tree(tree["params"])} == {
+        p: v.shape for p, v in weights._flatten_tree(want["params"])}
+    return tree
 
 
 def _models(stem="conv", cfg_j=jcfg.TINY_64, cfg_t=tcfg.TINY_64):

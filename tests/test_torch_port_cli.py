@@ -44,6 +44,7 @@ from tdrn_tpu_torch.eval import motion as tmotion
 from tdrn_tpu_torch.inference import StreamingDetector
 from tdrn_tpu_torch.models.detector import build_detector
 from tdrn_tpu_torch.train import checkpoint
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)

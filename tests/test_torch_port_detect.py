@@ -16,6 +16,7 @@ from tdrn_tpu.ops.priors import prior_boxes as j_prior_boxes
 from tdrn_tpu_torch import config as tcfg
 from tdrn_tpu_torch.ops import detection as TD
 from tdrn_tpu_torch.ops.priors import prior_boxes
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 

@@ -15,6 +15,7 @@ from tdrn_tpu_torch import config as tcfg
 from tdrn_tpu_torch.ops import boxes as TB
 from tdrn_tpu_torch.ops.preprocess import preprocess_batch, preprocess_frame
 from tdrn_tpu_torch.ops.priors import prior_boxes, prior_boxes_np
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("name", sorted(jcfg.CONFIGS))

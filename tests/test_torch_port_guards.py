@@ -27,6 +27,7 @@ from tdrn_tpu_torch.ops.detection import RawPredictions
 from tdrn_tpu_torch.ops.nms_suppress import suppress_sorted
 from tdrn_tpu_torch.ops.qconv import pack_weight, qconv
 from tdrn_tpu_torch.ops.stem import fused_conv_stage, fused_stem_stage1
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "tdrn_tpu_torch")
@@ -43,8 +44,9 @@ def _modules():
 # The port's scripts at the root and under tools/ (they import torch and
 # tdrn_tpu_torch at their top level). tools/orbax_to_torch.py bridges the two
 # packages and is not one of them.
-CLIS = ("serve_torch", "test_torch", "eval_torch", "live_torch", "profile_trace_torch")
-SCRIPTS = ("bench_torch", "tools.device_bench_torch") + CLIS
+CLIS = ("serve_torch", "test_torch", "eval_torch", "live_torch", "profile_trace_torch",
+        "train_torch")
+SCRIPTS = ("bench_torch", "tools.device_bench_torch", "tools.train_bench_torch") + CLIS
 
 
 def test_import_leaves_out_jax_and_tdrn_tpu():
@@ -52,7 +54,8 @@ def test_import_leaves_out_jax_and_tdrn_tpu():
     assert "tdrn_tpu_torch.inference" in mods and "tdrn_tpu_torch.models.detector" in mods
     assert "tdrn_tpu_torch.eval.runner" in mods and "tdrn_tpu_torch.eval.voc_eval" in mods
     for m in ("inference", "train.checkpoint", "data.image", "data.voc", "data.vid",
-              "eval.motion", "utils.logging"):
+              "eval.motion", "utils.logging", "ops.matching", "train.loss", "train.trainer",
+              "data.augment", "data.loader"):
         assert f"tdrn_tpu_torch.{m}" in mods, m
     mods += SCRIPTS
     code = (
@@ -80,7 +83,8 @@ _FORBIDDEN = re.compile(
 
 def _port_sources():
     scripts = ("chip_smoke.py", "chip_compare.py", "bench_torch.py",
-               "tools/device_bench_torch.py") + tuple(f"{c}.py" for c in CLIS)
+               "tools/device_bench_torch.py", "tools/train_bench_torch.py") + tuple(
+        f"{c}.py" for c in CLIS)
     return [os.path.join(ROOT, f) for f in scripts] + [
         os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")
     ]
@@ -97,14 +101,16 @@ def test_source_names_no_jax_import():
 
 
 _CV2 = re.compile(r"^([ \t]*)(import\s+cv2\b|from\s+cv2\b)", re.M)
-# Inside a function only: live_torch.py (video capture, writing and drawing)
-# and chip_smoke.py (cv2.resize timed beside the port's, where cv2 exists).
-_CV2_IN_FUNCTION = ("live_torch.py", "chip_smoke.py")
+# Inside a function only: live_torch.py (video capture, writing and drawing),
+# chip_smoke.py (cv2.resize timed beside the port's, where cv2 exists) and
+# data/augment.py (the training augmentation's HSV, canvas and float resize).
+_CV2_IN_FUNCTION = ("live_torch.py", "chip_smoke.py", "augment.py")
 
 
 def test_host_path_needs_no_cv2():
     """The serve/test/eval path decodes and resizes with data/image.py: no
-    port module and no CLI imports cv2, and no script at module level."""
+    port module and no CLI imports cv2, and no script at module level; only
+    the training augmentation calls it, from inside its functions."""
     for path in _port_sources():
         hits = _CV2.findall(open(path).read())
         if os.path.basename(path) in _CV2_IN_FUNCTION:
@@ -112,6 +118,7 @@ def test_host_path_needs_no_cv2():
         else:
             assert not hits, f"{path}: imports cv2"
     assert any(_CV2.findall(open(os.path.join(ROOT, "live_torch.py")).read()))
+    assert any(_CV2.findall(open(os.path.join(PKG, "data", "augment.py")).read()))
     assert _CV2.findall("\n\nimport cv2") == [("", "import cv2")]
     assert _CV2.search("    import cv2") and not _CV2.search("import cv2x")
 
@@ -218,6 +225,15 @@ def test_entry_points_refuse_without_cuda():
             StreamingDetector(model, **kw)
     with pytest.raises(RuntimeError, match="CUDA"):
         _build.library("stem")
+    # The training entry points: train_torch.py and tools/train_bench_torch.py.
+    import train_torch
+    from tools import train_bench_torch
+
+    for main, argv in ((train_torch.main, ["--data_root", ROOT]),
+                       (train_bench_torch.main, ["--config", "tiny_64"])):
+        for extra in ([], ["--device", "cuda"]):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                main(argv + extra)
 
 
 def test_unported_options_raise():

@@ -36,6 +36,7 @@ from tdrn_tpu_torch.models.detector import build_detector
 from tdrn_tpu_torch.models.layers import QConv
 from tdrn_tpu_torch.utils import precision as tprec
 from tdrn_tpu_torch.utils import quantize as tq
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 log = logging.getLogger(__name__)
 

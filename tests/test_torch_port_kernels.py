@@ -25,6 +25,7 @@ from tdrn_tpu_torch.ops.detection import RawPredictions
 from tdrn_tpu_torch.ops.nms_suppress import suppress_sorted
 from tdrn_tpu_torch.ops.stem import fused_stem_stage1
 from tests.test_geometry import random_boxes
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 

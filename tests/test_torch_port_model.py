@@ -19,6 +19,7 @@ from tdrn_tpu_torch import weights
 from tdrn_tpu_torch.inference import StreamingDetector, make_single_image_forward
 from tdrn_tpu_torch.models.detector import build_detector
 from tdrn_tpu_torch.ops.detection import RawPredictions
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SMALL = dict(tcb_channels=32, width_mult=0.125)
 # Raw predictions and state of one forward: fp32 reassociation only, with

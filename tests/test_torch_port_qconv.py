@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from tdrn_tpu.models.layers import QConv as JQConv
 from tdrn_tpu_torch.models.layers import QConv
 from tdrn_tpu_torch.ops import qconv as q
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # (B, H, W, Cin, Cout, k, stride, dilation): every distinct QConv call of
 # VID_320 int8 (37 a step), ResNet-101 vid_512 int8 (126), s2d + light and

@@ -26,6 +26,7 @@ from tdrn_tpu_torch import weights
 from tdrn_tpu_torch.models import resnet as tresnet
 from tdrn_tpu_torch.models.detector import build_detector
 from tdrn_tpu_torch.utils.precision import apply_inference_precision
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SMALL = dict(tcb_channels=32, width_mult=0.0625)
 ATOL = 1e-4  # fp32, the port's forward bound (tests/test_torch_port_model.py)

@@ -24,6 +24,7 @@ from tdrn_tpu_torch.inference import StreamingDetector
 from tdrn_tpu_torch.models.detector import build_detector
 from tdrn_tpu_torch.serving import InferenceServer, LatencyStats, _Pending
 from tdrn_tpu_torch.utils.precision import apply_inference_precision
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SMALL = dict(tcb_channels=32, width_mult=0.125)
 

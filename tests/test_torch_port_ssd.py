@@ -28,6 +28,7 @@ from tdrn_tpu_torch.models import ssd as tssd
 from tdrn_tpu_torch.ops import detection as TD
 from tdrn_tpu_torch.ops import nms as TN
 from tdrn_tpu_torch.ops.priors import prior_boxes
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SMALL = dict(width_mult=0.125)
 ATOL = 1e-4  # forward, fp32 reassociation (tests/test_torch_port_model.py)

@@ -22,6 +22,7 @@ from tdrn_tpu_torch.models.detector import build_detector
 from tdrn_tpu_torch.ops.detection import RawPredictions
 from tdrn_tpu_torch.ops.stem import fused_conv_stage
 from tdrn_tpu_torch.utils import precision as TP
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 SMALL = dict(tcb_channels=32, width_mult=0.125)

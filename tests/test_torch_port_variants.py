@@ -28,6 +28,7 @@ from tdrn_tpu_torch.models import temporal as ttemporal
 from tdrn_tpu_torch.models.detector import build_detector
 from tdrn_tpu_torch.ops.detection import RawPredictions
 from tdrn_tpu_torch.utils import precision as tprec
+from tests.test_torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SMALL = dict(tcb_channels=32, width_mult=0.125)
 ATOL = 1e-4  # fp32 reassociation only (tests/test_torch_port_model.py)
