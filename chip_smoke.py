@@ -186,9 +186,35 @@
    - times (cuDNN TF32 on): tools/train_bench_torch.py at voc_320 b32 fp32
      and bf16 and vid_320 clip T=8 b4 with and without --remat (ms/step,
      images/s, peak memory), a torch.profiler breakdown of the clip step by
-     part and kernel kind (chiprun_out/profile_train_vid320_clip.txt), the
-     host loader's images/s at batch 32 and train_torch.py's at voc_320 b32;
-     the numbers also go to chiprun_out/training.json.
+     part and kernel kind (chiprun_out/profile_train_vid320_clip.txt) and
+     train_torch.py's images/s at voc_320 b32 fp32 with --loader threads and
+     --loader processes (8 workers each, steps 21-40 of 40); the numbers also
+     go to chiprun_out/training.json.
+8e. After training, four phases, each timed:
+   - top-k ties (tools/tpu_checks.py::check_topk_equivalence): ops/nms.py's
+     _top_k on the card equal to its CPU result in values and index order,
+     most scores zeroed and every other trial quantized, at (6375,),
+     (16320,), (31, 512) and (21, 6375) with k 200, 512, 200, 200, twice
+     each;
+   - the input pipeline: data/process_loader.py bit-equal to data/loader.py
+     batch for batch over an epoch boundary at 0 and 8 workers, on a
+     generated mini-VOC (frames, pinned) and mini-VID (clips, (T, B, ...));
+     then images/s at voc_320 b32 with the full SSDAugmentation in steady
+     state, 8 threads against 2, 4, 8 and 16 worker processes (at most
+     os.cpu_count()), pinned, and 8 of each unpinned; one image's
+     augmentation on one thread, the host's cores and /dev/shm logged;
+   - native decode: data/native.py's probe of csrc/libtdrn_io.so and its
+     reason; where it loads, decode_resize (with and without the mean) and
+     decode_resize_batch within 1.0 of PIL's decode and data/image.py's
+     resize, and images/s beside theirs; a library that does not load on
+     this host is logged, not failed (nothing on the card path uses it);
+   - fidelity smoke: tools/synth_fidelity_torch.py's easy profile at full
+     width with the worker-process loader, cut in depth to
+     FIDELITY_SMOKE_STEPS (300) of the harness's 3000 steps: an AP for each
+     of its 4 classes, the training loss falling (the first logged at step
+     10 against the last), and eval_torch.py run again in this process on
+     its checkpoint: fp32 with K2 launched and the same APs, int8 with K2
+     and K5 launched; the mAP logged (chiprun_out/fidelity_smoke.json).
 9. Prints {"kernels": [...]} (K5's entry holds the VID_320 int8 step's sum
    and each path's; its per-shape rows go to chiprun_out/k5_shapes.json)
    and, last, {"ok": true, "device": {...}}.
@@ -1884,6 +1910,7 @@ TRAIN_LOSS_RTOL = 1e-4  # card against host, one fp32 VID_320 clip step
 TRAIN_GRAD_REL = 1e-3  # |g_card - g_host| / |g_host| over every parameter
 TRAIN_LEARN_STEPS = 20
 TRAIN_LEARN_DROP = 0.9  # the last loss below this share of the first (tests/test_loss.py)
+TRAIN_LOADER_STEPS = 40  # train_torch.py voc_320 b32 runs timed over their second half
 TRAIN_BENCH = (  # tools/train_bench_torch.py cells
     ("voc_320 b32 fp32", ["--config", "voc_320", "--batch", "32"]),
     ("voc_320 b32 bf16", ["--config", "voc_320", "--batch", "32", "--bf16"]),
@@ -2132,12 +2159,9 @@ def train_learns(torch):
 def train_times(torch, card, voc_root):
     """tools/train_bench_torch.py on each TRAIN_BENCH cell (cuDNN TF32 on,
     PyTorch's default), a profiler breakdown of the vid_320 clip step, and
-    the images/s of train_torch.py's host loader at batch 32."""
+    train_torch.py's images/s at voc_320 b32 with each --loader."""
     sys.path.insert(0, os.path.join(HERE, "tools"))
     import train_bench_torch
-
-    from tdrn_tpu_torch.data import SSDAugmentation, VOCDetection
-    from tdrn_tpu_torch.data.loader import make_loader
 
     res = {}
     quiet = lambda argv: _quiet(train_bench_torch.main, argv)[0]
@@ -2157,25 +2181,18 @@ def train_times(torch, card, voc_root):
         f"{json.dumps(prof['profile_ms_a_step'])}")
     torch.cuda.empty_cache()
 
-    ds = VOCDetection(voc_root, image_sets=(("2007", "test"),),
-                      transform=SSDAugmentation(320, seed=SEED), seed=SEED)
-    loader = make_loader(ds, batch_size=32, num_workers=8, seed=SEED, pin_memory=True)
-    try:
-        next(loader)
-        t0 = time.perf_counter()
-        for _ in range(5):
-            next(loader)
-        res["host loader images/s b32"] = 5 * 32 / (time.perf_counter() - t0)
-    finally:
-        loader.close()
-    _, logged, _ = _run_train(["--dataset", "voc_320", "--data_root", voc_root,
-                               "--image_sets", "2007:test", "--batch_size", "32",
-                               "--num_workers", "8", "--log_every", "3", "--max_iter", "6",
-                               "--save_folder", os.path.join(HERE, "build", "training", "voc32")])
-    res["train_torch.py voc_320 b32 images/s"] = 32 * logged["steps_per_sec"]
-    log(f"  host loader (8 threads, 375x500 JPEG, SSDAugmentation, pinned) "
-        f"{res['host loader images/s b32']:.1f} images/s at batch 32; train_torch.py voc_320 b32 "
-        f"fp32 steps 4-6: {res['train_torch.py voc_320 b32 images/s']:.1f} images/s on {card}")
+    for loader in ("threads", "processes"):
+        # Steps 21-40: past the batches both loaders prefetch at the start.
+        _, logged, _ = _run_train([
+            "--dataset", "voc_320", "--data_root", voc_root, "--image_sets", "2007:test",
+            "--batch_size", "32", "--num_workers", "8", "--loader", loader,
+            "--log_every", str(TRAIN_LOADER_STEPS // 2), "--max_iter", str(TRAIN_LOADER_STEPS),
+            "--save_folder", os.path.join(HERE, "build", "training", f"voc32_{loader}")])
+        key = f"train_torch.py voc_320 b32 images/s, --loader {loader}"
+        res[key] = 32 * logged["steps_per_sec"]
+        log(f"  train_torch.py voc_320 b32 fp32 --loader {loader} (8 workers), steps "
+            f"{TRAIN_LOADER_STEPS // 2 + 1}-{TRAIN_LOADER_STEPS}: {res[key]:.1f} images/s against "
+            f"the step's {res['voc_320 b32 fp32']['value']:.1f} on {card}")
     with open(os.path.join(out_dir, "training.json"), "w") as f:
         json.dump({"card": card, **res}, f, indent=1)
     return res
@@ -2203,6 +2220,224 @@ def training(torch, names, card):
     log(f"  ({time.perf_counter() - t0:.1f} s)")
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     return out
+
+# --- top-k ties, the input pipeline, native decode, fidelity smoke -----------
+
+TOPK_CASES = (((6375,), 200), ((16320,), 512), ((31, 512), 200), ((21, 6375), 200))
+
+
+def topk_ties(torch):
+    """tools/tpu_checks.py::check_topk_equivalence on the card: ops/nms.py's
+    _top_k equal to its CPU result in values and index order under heavy ties
+    (most scores zeroed, and every other trial quantized to sixteenths), at
+    the shapes the detect paths select from, two trials each."""
+    from tdrn_tpu_torch.ops.nms import _top_k
+
+    rng = np.random.RandomState(0)
+    for t in range(2 * len(TOPK_CASES)):
+        shape, k = TOPK_CASES[t % len(TOPK_CASES)]
+        scores = rng.rand(*shape).astype(np.float32)
+        scores[scores < 0.6] = 0.0
+        if t % 2:
+            scores = np.round(scores * 16) / 16
+        v_ref, i_ref = _top_k(torch.from_numpy(scores), k)
+        v, i = (x.cpu() for x in _top_k(torch.from_numpy(scores).cuda(), k))
+        same = torch.equal(v, v_ref) and torch.equal(i, i_ref)
+        log(f"  trial {t}: shape {shape} k={k}, {int((scores == 0).sum())} zeros: "
+            f"values and indices {'equal' if same else 'DIFFER'}")
+        check(same, f"top-k ties: trial {t} shape {shape} k={k} differs from the CPU's")
+    return len(TOPK_CASES) * 2
+
+
+def _shm_gib():
+    st = os.statvfs("/dev/shm")
+    return st.f_blocks * st.f_frsize / 2**30, st.f_bavail * st.f_frsize / 2**30
+
+
+def _images_per_s(loader, batch, workers):
+    """Images/s in steady state: the batches the start left in flight (two
+    rounds of the workers) are taken first, then two rounds are timed."""
+    rounds = max(workers, 4)
+    try:
+        for _ in range(2 * rounds):
+            next(loader)
+        t0 = time.perf_counter()
+        for _ in range(2 * rounds):
+            next(loader)
+        return 2 * rounds * batch / (time.perf_counter() - t0)
+    finally:
+        loader.close()
+
+
+def loader_phase(torch, card):
+    """data/process_loader.py against data/loader.py: the same batches bit for
+    bit over an epoch boundary at 0 and 8 workers, on a mini-VOC (frame mode)
+    and a mini-VID (clip mode, (T, B, ...)); then images/s at voc_320 b32 with
+    the full augmentation, 8 threads against 2-16 worker processes, pinned,
+    and 8 of each unpinned; and one image's augmentation on one thread."""
+    import shutil
+
+    from tdrn_tpu_torch.data import SSDAugmentation, VIDDetection, VOCDetection
+    from tdrn_tpu_torch.data.loader import make_loader
+    from tdrn_tpu_torch.data.process_loader import make_process_loader
+
+    work = os.path.join(HERE, "build", "loader")
+    shutil.rmtree(work, ignore_errors=True)
+    voc_root, vid_root = os.path.join(work, "mini_voc"), os.path.join(work, "mini_vid")
+    _mini_voc(voc_root)
+    _mini_vid(vid_root, split="train")
+    total, free = _shm_gib()
+    out = {"cpu_count": os.cpu_count(), "dev_shm_gib": total, "dev_shm_free_gib": free}
+    log(f"  {os.cpu_count()} host cores; /dev/shm {total:.1f} GiB ({free:.1f} free)")
+    aug = SSDAugmentation(320, seed=SEED)
+    voc = VOCDetection(voc_root, image_sets=(("2007", "test"),), transform=aug, seed=SEED)
+    vid = VIDDetection(vid_root, "train", mode="clip", seq_len=4, transform=aug, seed=SEED)
+    # 6 batches of 4 cross the 16-image epoch; 3 of 2 clips cross the 2-snippet one.
+    for what, ds, batch, n, clip in (("mini-VOC frames", voc, 4, 6, False),
+                                     ("mini-VID clips T=4", vid, 2, 3, True)):
+        for workers in (0, 8):
+            ref = make_loader(ds, batch, num_workers=8, clip_mode=clip, seed=SEED)
+            got = make_process_loader(ds, batch, num_workers=workers, clip_mode=clip, seed=SEED,
+                                      pin_memory=True)
+            try:
+                for b in range(n):
+                    a, g = next(ref), next(got)
+                    same = all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, g))
+                    check(same, f"process loader, {what}, {workers} workers: batch {b} differs "
+                                "from the thread loader's")
+                check(all(t.is_pinned() for t in g), "process loader: batch not pinned")
+            finally:
+                ref.close()
+                got.close()
+            log(f"  {what}, {workers} workers: {n} batches {tuple(g[0].shape)} bit-equal to the "
+                f"thread loader's (over an epoch boundary)")
+    t0 = time.perf_counter()
+    for i in range(32):
+        voc.sample(i % 16, 1)
+    out["ms_an_image_one_thread"] = (time.perf_counter() - t0) / 32 * 1e3
+    log(f"  one augmented 375x500 image on the calling thread: "
+        f"{out['ms_an_image_one_thread']:.2f} ms")
+    rates = {"threads 8": _images_per_s(
+        make_loader(voc, 32, num_workers=8, seed=SEED, pin_memory=True), 32, 8)}
+    for workers in sorted({min(w, os.cpu_count()) for w in (2, 4, 8, 16)}):
+        rates[f"processes {workers}"] = _images_per_s(
+            make_process_loader(voc, 32, num_workers=workers, seed=SEED, pin_memory=True), 32,
+            workers)
+    # Unpinned: the hand-over without the copy into page-locked memory.
+    workers = min(8, os.cpu_count())
+    rates["threads 8 unpinned"] = _images_per_s(
+        make_loader(voc, 32, num_workers=8, seed=SEED), 32, 8)
+    rates[f"processes {workers} unpinned"] = _images_per_s(
+        make_process_loader(voc, 32, num_workers=workers, seed=SEED), 32, workers)
+    out["images_per_s_b32"] = rates
+    log("  voc_320 b32 (375x500 JPEG, full SSDAugmentation, pinned unless said), images/s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()) + f" on {card}")
+    return out
+
+
+def native_phase(card):
+    """tdrn_tpu_torch/data/native.py: the probe's verdict; where the library
+    loads, decode_resize (with and without the mean) and decode_resize_batch
+    against PIL's decode + data/image.py's resize (atol 1.0), and images/s
+    against them. A library that does not load is logged: no card path
+    uses it."""
+    from tdrn_tpu_torch.data import image, native
+
+    ok, reason = native.available(), native.unavailable_reason()
+    log(f"  csrc/libtdrn_io.so: {'available' if ok else 'unavailable: ' + reason}")
+    out = {"available": ok, "reason": reason}
+    if not ok:
+        return out
+    root = os.path.join(HERE, "build", "loader", "mini_voc", "VOC2007", "JPEGImages")
+    paths = sorted(os.path.join(root, f) for f in os.listdir(root))
+    mean = np.asarray((104.0, 117.0, 123.0), np.float32)
+    ref = np.stack([image.resize(image.imread(p), 320).astype(np.float32) for p in paths])
+    got = np.stack([native.decode_resize(p, 320) for p in paths])
+    got_mean = native.decode_resize(paths[0], 320, mean)
+    batch = native.decode_resize_batch(paths, 320, mean, num_threads=8)
+    out["max_abs_err"] = err = float(max(np.abs(got - ref).max(),
+                                         np.abs(got_mean - (ref[0] - mean)).max(),
+                                         np.abs(batch - (ref - mean)).max()))
+    check(err <= 1.0, f"native decode: max|diff| {err} from PIL + data/image.py's resize > 1.0")
+    check(native.jpeg_dims(paths[0]) == image.imread(paths[0]).shape[:2],
+          "native jpeg_dims differs from PIL's")
+
+    def rate(fn, n=len(paths), reps=3):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return reps * n / (time.perf_counter() - t0)
+
+    out["images_per_s"] = {
+        "native decode_resize, 1 thread": rate(lambda: [native.decode_resize(p, 320)
+                                                        for p in paths]),
+        "native decode_resize_batch, 8 threads": rate(
+            lambda: native.decode_resize_batch(paths, 320, mean, num_threads=8)),
+        "PIL decode + data/image.py resize, 1 thread": rate(
+            lambda: [image.resize(image.imread(p), 320) for p in paths]),
+    }
+    log(f"  against PIL + data/image.py's resize: max|diff| {err:.3g} (atol 1.0); 375x500 JPEG "
+        "to 320, images/s: " + ", ".join(f"{k} {v:.1f}" for k, v in out["images_per_s"].items())
+        + f" on {card}")
+    return out
+
+
+FIDELITY_SMOKE_STEPS = 300  # the one cut in depth: the harness's default is 3000
+
+
+def fidelity_smoke(torch, card):
+    """tools/synth_fidelity_torch.py's easy profile on the card at full width
+    (voc_320, VGG-16, 256 TCB channels) with the worker-process loader, cut to
+    FIDELITY_SMOKE_STEPS steps: its JSON line with an AP for each of the 4
+    classes, the loss falling, and eval_torch.py run again in this process on
+    the checkpoint: fp32 with K2 launched and the same APs, then int8 (K2
+    and K5)."""
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import eval_torch
+    import synth_fidelity_torch
+
+    from tdrn_tpu_torch.ops.nms_suppress import suppress_sorted
+    from tdrn_tpu_torch.ops.qconv import qconv
+
+    out_dir = os.path.join(HERE, "build", "fidelity_smoke")
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    t0 = time.perf_counter()
+    res = synth_fidelity_torch.main([
+        "--out", out_dir, "--steps", str(FIDELITY_SMOKE_STEPS),
+        "--extra_train_args", "--log_every 10",
+        "--record", os.path.join(HERE, "chiprun_out", "fidelity_smoke.json")])
+    secs = time.perf_counter() - t0
+    classes = synth_fidelity_torch.CLASSES
+    check(set(res["per_class"]) == set(classes) and res["mAP"] is not None,
+          f"fidelity smoke: APs {res['per_class']} lack a class of {list(classes)}")
+    first, last = res["train_loss_first_last"]
+    check(last < first, f"fidelity smoke: the loss did not fall ({first:.4f} -> {last:.4f})")
+    launches = {}
+    for precision in ("fp32", "int8"):
+        suppress_sorted.launches = qconv.launches = 0
+        (aps, _), _ = _quiet(eval_torch.main, [
+            "--dataset", "voc_320", "--data_root", os.path.join(out_dir, "data"),
+            "--checkpoint", os.path.join(out_dir, "weights"), "--split", "2007:test",
+            "--batch_size", "8", "--precision", precision])
+        launches[precision] = {"suppress_sorted": suppress_sorted.launches,
+                               "qconv": qconv.launches}
+        if precision == "fp32":
+            same = all(float(f"{aps[c]:.4f}") == res["per_class"][c] for c in classes)
+            check(same, f"fidelity smoke: eval_torch.py in process {[aps[c] for c in classes]} "
+                        f"against the harness's {res['per_class']}")
+    check(launches["fp32"]["suppress_sorted"] > 0 and launches["int8"]["suppress_sorted"] > 0,
+          f"fidelity smoke: an eval launched no K2 ({launches})")
+    check(launches["int8"]["qconv"] > 0 and launches["fp32"]["qconv"] == 0,
+          f"fidelity smoke: K5 launches {launches}: expected only in the int8 eval")
+    log(f"  synth_fidelity_torch.py easy, {FIDELITY_SMOKE_STEPS} steps, --loader "
+        f"{res['loader']}: mAP {res['mAP']:.4f} {json.dumps(res['per_class'])}, loss "
+        f"{first:.3f} -> {last:.3f}, train {res['train_s']:.1f} s, eval {res['eval_s'][0]:.1f} s "
+        f"({secs:.1f} s in all); eval_torch.py in process on its 24 test images: the same APs, "
+        f"launches {json.dumps(launches)}; on {card}")
+    return {"mAP": res["mAP"], "per_class": res["per_class"], "loss_first_last": [first, last],
+            "train_s": res["train_s"], "eval_s": res["eval_s"], "seconds": secs,
+            "eval_launches": launches}
+
 
 def int8_model(torch, cfg, **build):
     """The seeded random model in the resident-bf16 profile and its int8
@@ -2714,6 +2949,22 @@ def main() -> int:
         "VOC_320:")
     train = training(torch, names8, card)
     log(f"  (training {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    log("top-k under heavy ties (ops/nms.py::_top_k), card against CPU:")
+    topk_trials = topk_ties(torch)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    log("input pipeline: data/process_loader.py against data/loader.py:")
+    loader = loader_phase(torch, card)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    log("native decode (data/native.py over csrc/libtdrn_io.so):")
+    native = native_phase(card)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    log("fidelity smoke (tools/synth_fidelity_torch.py, easy profile):")
+    fidelity = fidelity_smoke(torch, card)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
     if "--profile" in sys.argv[1:]:
         profile_step(torch, lambda: det_r.detect(frames_r), "profile_resnet101_512.txt")
         profile_step(torch, lambda: det.detect(frames), "profile.txt")
@@ -2754,6 +3005,8 @@ def main() -> int:
         f"ResNet-101 vid_512 {json.dumps(r8_checks)}, {json.dumps(v8_checks)}")
     log(f"entry points: {json.dumps({k: v for k, v in ep.items() if not k.startswith('launches')})}")
     log(f"training: {json.dumps(train)}")
+    log(f"input pipeline: {json.dumps(dict(loader, topk_tie_trials=topk_trials, native=native))}")
+    log(f"fidelity smoke: {json.dumps(fidelity)}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

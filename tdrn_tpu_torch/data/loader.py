@@ -13,6 +13,7 @@ memory with ``pin_memory=True`` (a CUDA machine), ready for a
 
 from __future__ import annotations
 
+import functools
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -25,6 +26,75 @@ from tdrn_tpu_torch.data.vid import collate_clips
 from tdrn_tpu_torch.data.voc import collate_batch
 
 Batch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def index_stream(n: int, seed: int) -> Iterator[Tuple[int, int]]:
+    """Yields (epoch, index) forever, one seeded permutation of range(n) an
+    epoch; the epoch salts each sample's augmentation."""
+    rng = np.random.default_rng(seed)
+    epoch = 0
+    while True:
+        for i in rng.permutation(n):
+            yield epoch, int(i)
+        epoch += 1
+
+
+def fetch(dataset, job: Tuple[int, int]):
+    """The sample of ``job`` = (epoch, index)."""
+    epoch, i = job
+    # A fresh generator per call, seeded by (seed, epoch, index):
+    # deterministic under the pool (numpy Generators are not thread-safe).
+    if hasattr(dataset, "sample"):
+        return dataset.sample(i, epoch)
+    return dataset[i]
+
+
+def to_torch(arrays, pin_memory: bool) -> Batch:
+    """A collated batch of numpy arrays as torch tensors, pinned if asked."""
+    out = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
+    return tuple(t.pin_memory() for t in out) if pin_memory else out
+
+
+class Prefetcher:
+    """A daemon thread that keeps ``depth`` items of the iterator ``source``
+    in a bounded queue, off the consumer's thread. An exception in
+    ``source`` takes its item's place and is raised by ``get``; after
+    ``stop`` the thread ends once the item it waits for arrives."""
+
+    def __init__(self, source: Iterator, depth: int):
+        self.q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self.stopped = threading.Event()
+        self.thread = threading.Thread(target=self._run, args=(source,), daemon=True)
+        self.thread.start()
+
+    def _run(self, source: Iterator):
+        while not self.stopped.is_set():
+            try:
+                item = next(source)
+            except Exception as e:
+                if self.stopped.is_set():
+                    return  # shutdown race: the source is already closed
+                item = e  # re-raised by the consumer
+            while not self.stopped.is_set():
+                try:
+                    self.q.put(item, timeout=1)
+                    break
+                except queue.Full:
+                    continue
+            if isinstance(item, Exception):
+                return
+
+    def get(self):
+        item = self.q.get()
+        if isinstance(item, Exception):
+            raise item
+        return item
+
+    def stop(self, join_s: float = 0.0):
+        """Stop the thread; wait up to ``join_s`` seconds for it to end."""
+        self.stopped.set()
+        if join_s:
+            self.thread.join(join_s)
 
 
 class PrefetchLoader:
@@ -43,68 +113,26 @@ class PrefetchLoader:
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate = collate_clips if clip_mode else collate_batch
-        self.pin_memory = pin_memory
-        self.rng = np.random.default_rng(seed)
+        self.seed = seed
         self.pool = ThreadPoolExecutor(max_workers=num_workers)
-        self.q: "queue.Queue" = queue.Queue(maxsize=prefetch)
-        self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._produce, daemon=True)
-        self._thread.start()
+        self.prefetcher = Prefetcher(self._batches(pin_memory), prefetch)
 
-    def _index_stream(self) -> Iterator[tuple]:
-        """Yields (epoch, index); the epoch salts per-sample augmentation."""
-        n = len(self.dataset)
-        epoch = 0
+    def _batches(self, pin_memory: bool) -> Iterator[Batch]:
+        """Collated batches, each batch's samples fetched by the pool."""
+        stream = index_stream(len(self.dataset), self.seed)
+        fetch_one = functools.partial(fetch, self.dataset)
         while True:
-            for i in self.rng.permutation(n):
-                yield epoch, int(i)
-            epoch += 1
-
-    def _fetch(self, job: tuple):
-        epoch, i = job
-        # A fresh generator per call, seeded by (seed, epoch, index):
-        # deterministic under the pool (numpy Generators are not thread-safe).
-        if hasattr(self.dataset, "sample"):
-            return self.dataset.sample(i, epoch)
-        return self.dataset[i]
-
-    def _to_torch(self, arrays) -> Batch:
-        out = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
-        if self.pin_memory:
-            out = tuple(t.pin_memory() for t in out)
-        return out
-
-    def _produce(self):
-        stream = self._index_stream()
-        while not self._stop.is_set():
-            try:
-                idxs = [next(stream) for _ in range(self.batch_size)]
-                samples = list(self.pool.map(self._fetch, idxs))
-                batch = self._to_torch(self.collate(samples))
-            except Exception as e:
-                if self._stop.is_set():
-                    return  # shutdown race: the pool is already closed
-                batch = e  # re-raised by the consumer
-            while not self._stop.is_set():
-                try:
-                    self.q.put(batch, timeout=1)
-                    break
-                except queue.Full:
-                    continue
-            if isinstance(batch, Exception):
-                return
+            idxs = [next(stream) for _ in range(self.batch_size)]
+            yield to_torch(self.collate(list(self.pool.map(fetch_one, idxs))), pin_memory)
 
     def __iter__(self):
         return self
 
     def __next__(self) -> Batch:
-        batch = self.q.get()
-        if isinstance(batch, Exception):
-            raise batch
-        return batch
+        return self.prefetcher.get()
 
     def close(self):
-        self._stop.set()
+        self.prefetcher.stop()
         self.pool.shutdown(wait=False, cancel_futures=True)
 
 

@@ -42,11 +42,13 @@ def _modules():
 
 
 # The port's scripts at the root and under tools/ (they import torch and
-# tdrn_tpu_torch at their top level). tools/orbax_to_torch.py bridges the two
-# packages and is not one of them.
+# tdrn_tpu_torch at their top level, or drive the CLIs that do).
+# tools/orbax_to_torch.py and tools/verify_pretrained_torch.py bridge the two
+# packages and are not among them.
 CLIS = ("serve_torch", "test_torch", "eval_torch", "live_torch", "profile_trace_torch",
         "train_torch")
-SCRIPTS = ("bench_torch", "tools.device_bench_torch", "tools.train_bench_torch") + CLIS
+SCRIPTS = ("bench_torch", "tools.device_bench_torch", "tools.train_bench_torch",
+           "tools.synth_fidelity_torch", "tools.synth_vid_fidelity_torch") + CLIS
 
 
 def test_import_leaves_out_jax_and_tdrn_tpu():
@@ -55,7 +57,7 @@ def test_import_leaves_out_jax_and_tdrn_tpu():
     assert "tdrn_tpu_torch.eval.runner" in mods and "tdrn_tpu_torch.eval.voc_eval" in mods
     for m in ("inference", "train.checkpoint", "data.image", "data.voc", "data.vid",
               "eval.motion", "utils.logging", "ops.matching", "train.loss", "train.trainer",
-              "data.augment", "data.loader"):
+              "data.augment", "data.loader", "data.process_loader", "data.native"):
         assert f"tdrn_tpu_torch.{m}" in mods, m
     mods += SCRIPTS
     code = (
@@ -83,7 +85,8 @@ _FORBIDDEN = re.compile(
 
 def _port_sources():
     scripts = ("chip_smoke.py", "chip_compare.py", "bench_torch.py",
-               "tools/device_bench_torch.py", "tools/train_bench_torch.py") + tuple(
+               "tools/device_bench_torch.py", "tools/train_bench_torch.py",
+               "tools/synth_fidelity_torch.py", "tools/synth_vid_fidelity_torch.py") + tuple(
         f"{c}.py" for c in CLIS)
     return [os.path.join(ROOT, f) for f in scripts] + [
         os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")
@@ -102,9 +105,10 @@ def test_source_names_no_jax_import():
 
 _CV2 = re.compile(r"^([ \t]*)(import\s+cv2\b|from\s+cv2\b)", re.M)
 # Inside a function only: live_torch.py (video capture, writing and drawing),
-# chip_smoke.py (cv2.resize timed beside the port's, where cv2 exists) and
-# data/augment.py (the training augmentation's HSV, canvas and float resize).
-_CV2_IN_FUNCTION = ("live_torch.py", "chip_smoke.py", "augment.py")
+# chip_smoke.py (cv2.resize timed beside the port's, where cv2 exists),
+# data/augment.py (the training augmentation's HSV, canvas and float resize)
+# and data/process_loader.py (a worker sets OpenCV to one thread).
+_CV2_IN_FUNCTION = ("live_torch.py", "chip_smoke.py", "augment.py", "process_loader.py")
 
 
 def test_host_path_needs_no_cv2():

@@ -13,7 +13,9 @@ Checkpoints go to ``--save_folder`` in the layout of
 tdrn_tpu_torch/train/checkpoint.py (``model_meta.json``,
 ``<step>/params.pt`` and ``<step>/train_state.pt``); ``--resume`` continues
 from the newest exactly, and the inference CLIs read the directory as it is.
-The augmentation needs ``cv2``. ``--width_mult`` and ``--tcb_channels``
+The augmentation needs ``cv2``. ``--loader processes`` (or train.py's
+``grain``) fetches and augments in worker processes instead of threads,
+with the same batches for a seed. ``--width_mult`` and ``--tcb_channels``
 build a narrower model (smoke runs); both are written to the meta file.
 """
 
@@ -60,10 +62,17 @@ def parse_args(argv=None):
     ap.add_argument("--save_every", type=int, default=5000)
     ap.add_argument("--resume", action="store_true", help="resume from latest ckpt")
     ap.add_argument("--num_workers", type=int, default=8)
+    ap.add_argument("--loader", default="threads", choices=["threads", "processes", "grain"],
+                    help="input pipeline: a thread pool (data/loader.py) or worker "
+                         "processes (data/process_loader.py; 'grain' is train.py's "
+                         "name for it); the same batches for a seed either way")
     ap.add_argument("--temporal_cell", default="convgru", choices=["convgru", "light", "hybrid"])
     ap.add_argument("--stem", default="conv", choices=["conv", "poly", "poly2", "s2d"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log_every", type=int, default=10)
+    ap.add_argument("--tensorboard", action="store_true",
+                    help="also write the logged metrics as TensorBoard events under "
+                         "<save_folder>/tb")
     ap.add_argument("--bf16", action="store_true",
                     help="mixed-precision training: bf16 feature-pyramid compute "
                          "and carry (params cast once a step, outside the frame "
@@ -105,6 +114,7 @@ def main(argv=None):
     from tdrn_tpu_torch.data import (VID_CLASSES, VOC_CLASSES, SSDAugmentation, VIDDetection,
                                      VOCDetection)
     from tdrn_tpu_torch.data.loader import make_loader
+    from tdrn_tpu_torch.data.process_loader import make_process_loader
     from tdrn_tpu_torch.models.detector import build_detector
     from tdrn_tpu_torch.train import (Targets, init_train_state, make_optimizer,
                                       make_train_step)
@@ -204,16 +214,18 @@ def main(argv=None):
     step_fn = make_train_step(model, opt, clip_mode=args.clip, remat=args.remat,
                               compute_dtype=torch.bfloat16 if args.bf16 else None,
                               qat_scales=qat_scales)
-    logger = MetricsLogger(args.save_folder, echo_every=args.log_every)
+    logger = MetricsLogger(args.save_folder, tensorboard=args.tensorboard,
+                           echo_every=args.log_every)
+    make = make_loader if args.loader == "threads" else make_process_loader
     pin = dev.type == "cuda"
-    loader = make_loader(dataset, batch_size=args.batch_size, num_workers=args.num_workers,
-                         clip_mode=args.clip, seed=args.seed, pin_memory=pin)
+    loader = make(dataset, batch_size=args.batch_size, num_workers=args.num_workers,
+                  clip_mode=args.clip, seed=args.seed, pin_memory=pin)
     frame_loader = None
     if args.mixed_frames:
         frame_ds = VIDDetection(args.data_root, "train", mode="frame", transform=aug,
                                 seed=args.seed + 7919)
-        frame_loader = make_loader(frame_ds, batch_size=args.mixed_frames, num_workers=2,
-                                   seed=args.seed + 7919, pin_memory=pin)
+        frame_loader = make(frame_ds, batch_size=args.mixed_frames, num_workers=2,
+                            seed=args.seed + 7919, pin_memory=pin)
 
     def on_device(images, boxes, labels, valid):
         return images.to(dev, non_blocking=True), Targets(
