@@ -215,6 +215,31 @@
      10 against the last), and eval_torch.py run again in this process on
      its checkpoint: fp32 with K2 launched and the same APs, int8 with K2
      and K5 launched; the mAP logged (chiprun_out/fidelity_smoke.json).
+8f. Data-parallel and spatial-parallel (parallel/), after 8e, each part in
+   ranks spawned by parallel/distributed.py's spawn_ranks on this one card
+   (TF32 off):
+   - DP at world 1 under NCCL: one VID_320 clip step at full width (VGG-16,
+     conv stem, ConvGRU; B=2, T=2, fp32; deterministic algorithms on)
+     bit-equal in loss, metrics, updated params and momentum to the same
+     step with mesh=None (run twice, to show it is reproducible);
+   - DP at world 2 under gloo, both ranks on cuda:0, a clip a rank: the
+     world-1 batch against the one-process step on rank 0 (loss within
+     1e-4 relative, the positive counts equal, the update's global relative
+     difference within 1e-3: phase 8d's card-against-host bounds, as the
+     split batch changes cuDNN's sum order), the params equal on both
+     ranks; then a lopsided batch (clip 0 all boxes, clip 1 one small box),
+     where the per-rank normalized, averaged step (DDP's) is logged against
+     the summed one and must differ from it;
+   - dryrun_multichip(2, "vid_320_full") on cuda:0 (gloo);
+   - spatial_forward at world 2 (gloo, cuda:0), VID_320 at full width with
+     the fused cascade, S=4 frames of 320x320, fp32, the fused and the
+     fused2 stem: raw predictions and state within 1e-4 of max|ref| of the
+     one-rank forward, detections through detect_fn matched at 1e-5 in
+     score, the outputs equal on both ranks, K1-K3 (and K4) counted over
+     the split forwards, K3 and K4 held against their plain versions on
+     the band + halo shapes they ran at; the split forward timed beside the
+     one-rank one (no speed-up is expected from two ranks on one card);
+   - NCCL at world > 1 is logged as unverified (one GPU).
 9. Prints {"kernels": [...]} (K5's entry holds the VID_320 int8 step's sum
    and each path's; its per-shape rows go to chiprun_out/k5_shapes.json)
    and, last, {"ok": true, "device": {...}}.
@@ -2439,6 +2464,317 @@ def fidelity_smoke(torch, card):
             "eval_launches": launches}
 
 
+# --- phase 8f: data-parallel and spatial-parallel (parallel/) ---------------
+# Each part runs in processes of its own (parallel/distributed.py's
+# spawn_ranks), every rank on cuda:0: the machine has one card, so NCCL runs
+# at world 1 only and world 2 runs under gloo.
+
+PAR_LOSS_RTOL = 1e-4  # world 2 on one card against the one-process step (phase 8d's bounds)
+PAR_UPDATE_REL = 1e-3  # |u_dp - u_one| / |u_one|, u the update, over every parameter
+SPATIAL_REL = 1e-4  # split against one-rank forward: raw predictions and state, of max|ref|
+SPATIAL_SCORE_ATOL = 1e-5  # a matched detection's score
+SPATIAL_BOX_ATOL = 1e-4
+SPATIAL_FRAMES = 4
+
+
+def _par_init(rank, world, address, backend):
+    """TF32 off, this rank in the group on cuda:0; (torch, its mesh)."""
+    import torch
+
+    from tdrn_tpu_torch.parallel import init_distributed, make_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(address, world, rank, backend=backend, device="cuda:0")
+    return torch, make_mesh("cuda:0")
+
+
+def _par_clip_model(torch):
+    """VID_320 at full width (VGG-16, conv stem, ConvGRU) from phase 8d's
+    seeded draw, on the card."""
+    from tdrn_tpu_torch import weights
+    from tdrn_tpu_torch.config import VID_320
+    from tdrn_tpu_torch.models.detector import build_detector
+
+    model = build_detector(VID_320, device="cpu")
+    weights.init_weights(model, torch.Generator().manual_seed(SEED))
+    return model.to("cuda")
+
+
+def _update_rel(torch, got, ref, start):
+    """||(got - start) - (ref - start)|| / ||ref - start|| over every parameter."""
+    num = sum(float(((got[k] - ref[k]).double() ** 2).sum()) for k in ref)
+    den = sum(float(((ref[k] - start[k]).double() ** 2).sum()) for k in ref)
+    return (num / den) ** 0.5
+
+
+def _same_as_rank0(torch, params, mesh):
+    flat = torch.cat([v.reshape(-1) for v in params.values()])
+    ref = flat.clone()
+    torch.distributed.broadcast(ref, src=0, group=mesh.group)
+    return bool(torch.equal(flat, ref))
+
+
+def _dp_world1(rank, world, address):
+    """One VID_320 clip step (B=2, T=2, fp32) at world 1 under NCCL against
+    the same step with mesh=None, twice, deterministic algorithms on."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch, mesh = _par_init(rank, world, address, "nccl")
+    from tdrn_tpu_torch.config import VID_320
+    from tdrn_tpu_torch.train import init_train_state, make_optimizer, make_train_step
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    model = _par_clip_model(torch)
+    opt = make_optimizer(base_lr=1e-3, warmup_steps=1)
+    x, tg = _train_batch(torch, VID_320, 2, 2, SEED + 30)
+    x, tg = x.cuda(), _on(tg, "cuda")
+    runs = {}
+    for name, m in (("none", None), ("none_again", None), ("mesh", mesh)):
+        ts, met = make_train_step(model, opt, clip_mode=True, mesh=m)(init_train_state(model, opt),
+                                                                      x, tg)
+        runs[name] = ({k: float(v) for k, v in met.items()}, ts)
+
+    def same(a, b):
+        return a[0] == b[0] and all(torch.equal(a[1].params[k], b[1].params[k])
+                                    for k in a[1].params) and all(
+            torch.equal(a[1].opt_state.trace[k], b[1].opt_state.trace[k]) for k in a[1].params)
+
+    return dict(backend=torch.distributed.get_backend(), world=mesh.world,
+                loss=runs["mesh"][0]["loss"], metrics=runs["mesh"][0],
+                reproducible=same(runs["none"], runs["none_again"]),
+                bit_equal=same(runs["mesh"], runs["none"]))
+
+
+def _unequal_batch(torch, cfg):
+    """Phase 8d's batch made lopsided: clip 0 all 8 boxes valid, clip 1 one
+    box of 0.05 a side, so rank 0 of 2 holds most of the positives."""
+    x, tg = _train_batch(torch, cfg, 2, 2, SEED + 31)
+    boxes, valid = tg.boxes.clone(), tg.valid.clone()
+    valid[:, 0] = True
+    valid[:, 1, 1:] = False
+    boxes[:, 1, 0] = torch.tensor([0.40, 0.40, 0.45, 0.45])
+    return x, type(tg)(boxes, tg.labels, valid)
+
+
+def _dp_world2(rank, world, address):
+    """The world-1 batch at world 2 under gloo (a clip a rank) against the
+    one-process step on rank 0; then the lopsided batch, where the per-rank
+    normalized, averaged step (DDP's) is logged against the summed one."""
+    torch, mesh = _par_init(rank, world, address, "gloo")
+    from tdrn_tpu_torch.config import VID_320
+    from tdrn_tpu_torch.parallel import all_reduce_sum_, replicate_tree, shard_batch_tree
+    from tdrn_tpu_torch.train import init_train_state, make_optimizer, make_train_step
+
+    model = _par_clip_model(torch)
+    # No weight decay or clip: the update is -lr * gradient.
+    opt = make_optimizer(base_lr=1e-3, warmup_steps=1, weight_decay=0.0, grad_clip_norm=0.0)
+    ts0 = replicate_tree(init_train_state(model, opt), mesh)
+    dp = make_train_step(model, opt, clip_mode=True, mesh=mesh)
+    one = make_train_step(model, opt, clip_mode=True)
+    out = {}
+    for name, (x, tg) in (("batch", _train_batch(torch, VID_320, 2, 2, SEED + 30)),
+                          ("unequal", _unequal_batch(torch, VID_320))):
+        xs, tgs = shard_batch_tree((x, tg), mesh, leading_time_axis=True)
+        t0 = time.perf_counter()
+        ts, met = dp(ts0, xs, tgs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        own, own_met = one(ts0, xs, tgs)  # this rank's rows, its own counts
+        summed = all_reduce_sum_(list(own.params.values()), mesh)
+        averaged = {k: v / world for k, v in zip(own.params, summed)}
+        res = dict(metrics={k: float(v) for k, v in met.items()},
+                   local_num_pos_arm=float(own_met["num_pos_arm"]),
+                   same_params=_same_as_rank0(torch, ts.params, mesh), step_s=secs)
+        if rank == 0:
+            ref, ref_met = one(ts0, x.cuda(), _on(tg, "cuda"))
+            res.update(ref_metrics={k: float(v) for k, v in ref_met.items()},
+                       update_rel=_update_rel(torch, ts.params, ref.params, ts0.params),
+                       averaged_update_rel=_update_rel(torch, averaged, ref.params, ts0.params))
+        out[name] = res
+    return out
+
+
+def _spatial_rank(rank, world, address, stem):
+    """VID_320 full width, fused cascade, ``stem``, S=4 frames of 320x320:
+    spatial_forward at world 2 (gloo) against the one-rank forward, the
+    wrappers counted over the split forwards, K3 (and K4) recorded on their
+    band + halo shapes."""
+    torch, _ = _par_init(rank, world, address, "gloo")
+    from tdrn_tpu_torch.config import VID_320
+    from tdrn_tpu_torch.models import vgg
+    from tdrn_tpu_torch.models.detector import build_detector
+    from tdrn_tpu_torch.ops.cascade import fused_refine_cascade
+    from tdrn_tpu_torch.ops.detection import detect_topk
+    from tdrn_tpu_torch.ops.nms_suppress import suppress_sorted
+    from tdrn_tpu_torch.ops.preprocess import preprocess_batch
+    from tdrn_tpu_torch.ops.priors import prior_boxes
+    from tdrn_tpu_torch.ops.stem import fused_conv_stage, fused_stem_stage1, stem_plain
+    from tdrn_tpu_torch.parallel.spatial import make_spatial_mesh, spatial_forward
+
+    mesh = make_spatial_mesh("cuda:0")
+    cfg = dataclasses.replace(VID_320, fused_cascade=True)
+    model = random_params(build_detector(cfg, stem=stem, device="cuda"), SEED + 40)
+    rng = np.random.default_rng(SEED + 41)
+    frames = torch.tensor(rng.integers(0, 256, (SPATIAL_FRAMES, 320, 320, 3), dtype=np.uint8),
+                          device="cuda")
+    x = preprocess_batch(frames, cfg)
+    state = [torch.tensor(rng.normal(0, 0.5, tuple(s.shape)).astype(np.float32), device="cuda")
+             for s in model.zero_state(SPATIAL_FRAMES)]
+    priors = prior_boxes(cfg, "cuda")
+    detect_fn = lambda preds: detect_topk(preds, priors, cfg)  # noqa: E731
+    raw_fwd, det_fwd = spatial_forward(model, mesh), spatial_forward(model, mesh, detect_fn)
+    wrappers = [fused_refine_cascade, suppress_sorted, fused_stem_stage1]
+    if stem == "fused2":
+        wrappers.append(fused_conv_stage)
+    calls = {"fused_stem_stage1": [], "fused_conv_stage": []}
+
+    def recorder(fn):
+        def rec(*a, **kw):
+            calls[fn.__name__].append((a, kw))
+            return fn(*a, **kw)
+        return rec
+
+    saved = vgg.fused_stem_stage1, vgg.fused_conv_stage
+    vgg.fused_stem_stage1, vgg.fused_conv_stage = (recorder(fused_stem_stage1),
+                                                   recorder(fused_conv_stage))
+    try:
+        for w in wrappers:
+            w.launches = 0
+        preds, new_state = raw_fwd(x, state)
+        dets, _ = det_fwd(x, state)
+        torch.cuda.synchronize()
+        launches = {w.__name__: w.launches for w in wrappers}
+    finally:
+        vgg.fused_stem_stage1, vgg.fused_conv_stage = saved
+    same = [_same_as_rank0(torch, dict(enumerate(preds)), mesh),
+            _same_as_rank0(torch, dict(enumerate(new_state)), mesh),
+            _same_as_rank0(torch, {"b": dets.boxes, "s": dets.scores}, mesh)]
+    res = dict(launches=launches, same_on_every_rank=all(same))
+    if rank == 0:
+        with torch.no_grad():
+            ref, ref_state = model(x, state)
+            ref_dets = detect_fn(ref)
+        rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
+        res.update(
+            preds_rel=max(rel(a, b) for a, b in zip(preds, ref)),
+            state_rel=max(rel(a, b) for a, b in zip(new_state, ref_state)),
+            matched_share=matched_share(dets, ref_dets, SPATIAL_SCORE_ATOL, SPATIAL_BOX_ATOL),
+            matched_share_reverse=matched_share(ref_dets, dets, SPATIAL_SCORE_ATOL,
+                                                SPATIAL_BOX_ATOL),
+            detections=int((dets.scores > 0).sum()))
+        f32, b16 = torch.float32, torch.bfloat16
+        for name in ("fused_stem_stage1", "fused_conv_stage"):
+            if calls[name]:
+                (xb, k1, b1, k2, b2), kw = calls[name][0]
+                kern = fused_stem_stage1 if name == "fused_stem_stage1" else fused_conv_stage
+                tol = K3_REL_TOL if name == "fused_stem_stage1" else K4_REL_TOL
+                res[f"{name}_band"] = dict(shape=list(xb.shape), max_abs_err=_rel_err(
+                    torch, kern(xb, k1, b1, k2, b2, out_dtype=f32),
+                    stem_plain(xb, k1, b1, k2, b2, b16, f32),
+                    f"{name} on the band + halo shape {tuple(xb.shape)} ({stem})", tol))
+    # Times: the one-rank forward on rank 0 alone (rank 1 waits), then the
+    # split forward on both ranks.
+    times = {}
+    for what, fn in (("one_rank", lambda: model(x, state)), ("split", lambda: raw_fwd(x, state))):
+        torch.distributed.barrier()
+        if what == "one_rank" and rank != 0:
+            continue
+        ts = []
+        with torch.no_grad():
+            for i in range(13):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+        times[what] = statistics.median(ts[3:])
+    torch.distributed.barrier()
+    res["ms"] = times
+    return res
+
+
+def parallel_phase(torch, card):
+    """Phase 8f (module docstring): DP at world 1 under NCCL and world 2 under
+    gloo, the full-width dry run and the spatial forward at world 2, each in
+    spawned processes on this card."""
+    from tdrn_tpu_torch.parallel.distributed import spawn_ranks
+    from tdrn_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    torch.cuda.empty_cache()
+    out = {}
+    t0 = time.perf_counter()
+    w1 = spawn_ranks(_dp_world1, 1)[0]
+    log(f"  DP world 1 ({w1['backend']}) VID_320 clip step B=2 T=2 fp32: loss {w1['loss']:.6f}; "
+        f"bit-equal to mesh=None: {w1['bit_equal']} (mesh=None against itself: "
+        f"{w1['reproducible']}) ({time.perf_counter() - t0:.1f} s)")
+    check(w1["backend"] == "nccl" and w1["world"] == 1, f"DP world 1: {w1['backend']}")
+    check(w1["bit_equal"], "DP world 1 under NCCL differs from the step with mesh=None")
+    out["dp_world1"] = w1
+    t0 = time.perf_counter()
+    r0, r1 = spawn_ranks(_dp_world2, 2)
+    for name in ("batch", "unequal"):
+        a, b = r0[name], r1[name]
+        m, ref = a["metrics"], a["ref_metrics"]
+        loss_rel = abs(m["loss"] - ref["loss"]) / abs(ref["loss"])
+        log(f"  DP world 2 (gloo, both ranks on cuda:0), {name}: loss {m['loss']:.6f} / one "
+            f"process {ref['loss']:.6f} (rel {loss_rel:.3g}, bound {PAR_LOSS_RTOL}), "
+            f"num_pos_arm {m['num_pos_arm']:.2f} / {ref['num_pos_arm']:.2f}, num_pos_odm "
+            f"{m['num_pos_odm']:.2f} / {ref['num_pos_odm']:.2f}; update rel {a['update_rel']:.3g} "
+            f"(bound {PAR_UPDATE_REL}); per-rank normalized, averaged update rel "
+            f"{a['averaged_update_rel']:.3g}; rank positives (clip means) "
+            f"{a['local_num_pos_arm']:.2f} / {b['local_num_pos_arm']:.2f}; params equal on "
+            f"both ranks {a['same_params'] and b['same_params']}; step {a['step_s']:.2f} s")
+        check(loss_rel <= PAR_LOSS_RTOL, f"DP world 2 {name}: loss {m['loss']} vs {ref['loss']}")
+        check(m["num_pos_arm"] == ref["num_pos_arm"] and m["num_pos_odm"] == ref["num_pos_odm"],
+              f"DP world 2 {name}: positive counts differ from the one-process step")
+        check(a["update_rel"] <= PAR_UPDATE_REL, f"DP world 2 {name}: update rel {a['update_rel']}")
+        check(a["same_params"] and b["same_params"], f"DP world 2 {name}: ranks' params differ")
+        check(b["metrics"] == m, f"DP world 2 {name}: the ranks report different metrics")
+        out[f"dp_world2_{name}"] = dict(loss_rel=loss_rel, update_rel=a["update_rel"],
+                                        averaged_update_rel=a["averaged_update_rel"],
+                                        rank_num_pos_arm=[a["local_num_pos_arm"],
+                                                          b["local_num_pos_arm"]],
+                                        step_s=a["step_s"])
+    check(r0["unequal"]["averaged_update_rel"] > 10 * PAR_UPDATE_REL,
+          "the per-rank averaged step should differ from the summed one on the lopsided batch")
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2, "vid_320_full", device="cuda:0")
+    check(dry["same_params"] and dry["backend"] == "gloo", f"dry run: {dry}")
+    out["dryrun_vid_320_full"] = dict(loss=dry["loss"], priors=dry["priors"],
+                                      seconds=time.perf_counter() - t0)
+    log(f"  dryrun_multichip(2, vid_320_full) on cuda:0 (gloo): loss {dry['loss']:.6f}, params "
+        f"equal on both ranks ({time.perf_counter() - t0:.1f} s)")
+    launches = {}
+    for stem in ("fused", "fused2"):
+        t0 = time.perf_counter()
+        s0, s1 = spawn_ranks(_spatial_rank, 2, stem)
+        log(f"  spatial_forward world 2 (gloo, cuda:0), VID_320 {stem}, fused cascade, "
+            f"S={SPATIAL_FRAMES} 320x320 fp32: raw predictions rel {s0['preds_rel']:.3g}, state "
+            f"rel {s0['state_rel']:.3g} (bound {SPATIAL_REL}); detections matched "
+            f"{s0['matched_share']:.4f} / {s0['matched_share_reverse']:.4f} of "
+            f"{s0['detections']} (scores within {SPATIAL_SCORE_ATOL}); the same on every "
+            f"rank {s0['same_on_every_rank'] and s1['same_on_every_rank']}; launches "
+            f"{json.dumps(s0['launches'])}; forward {s0['ms']['one_rank']:.3f} ms one rank, "
+            f"{s0['ms']['split']:.3f} ms split over 2 ranks sharing the card (no speed-up "
+            f"expected on one GPU) on {card} ({time.perf_counter() - t0:.1f} s)")
+        check(s0["preds_rel"] <= SPATIAL_REL and s0["state_rel"] <= SPATIAL_REL,
+              f"spatial {stem}: raw predictions or state differ from the one-rank forward")
+        check(min(s0["matched_share"], s0["matched_share_reverse"]) >= CHUNK_MATCH_SHARE,
+              f"spatial {stem}: detections differ from the one-rank forward's")
+        check(s0["same_on_every_rank"] and s1["same_on_every_rank"],
+              f"spatial {stem}: the ranks' outputs differ")
+        for w, n in s0["launches"].items():
+            check(n >= 1, f"spatial {stem}: {w} never launched on the split forward")
+        check(s0["launches"] == s1["launches"], f"spatial {stem}: launches differ by rank")
+        launches[f"spatial_{stem}_w2"] = s0["launches"]
+        out[f"spatial_{stem}"] = {k: v for k, v in s0.items() if k != "launches"}
+    out["launches"] = launches
+    log("  NCCL at world > 1 is unverified: this machine has one GPU (world 1 ran under NCCL, "
+        "world 2 under gloo with both ranks on cuda:0)")
+    return out
+
+
 def int8_model(torch, cfg, **build):
     """The seeded random model in the resident-bf16 profile and its int8
     copy: calibrated with tcb and gru on 8 seeded uint8 frames (RandomState(1),
@@ -2965,6 +3301,10 @@ def main() -> int:
     log("fidelity smoke (tools/synth_fidelity_torch.py, easy profile):")
     fidelity = fidelity_smoke(torch, card)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    log("data-parallel and spatial-parallel (parallel/, spawned ranks on this card):")
+    parallel = parallel_phase(torch, card)
+    log(f"  (parallel {time.perf_counter() - t0:.1f} s)")
     if "--profile" in sys.argv[1:]:
         profile_step(torch, lambda: det_r.detect(frames_r), "profile_resnet101_512.txt")
         profile_step(torch, lambda: det.detect(frames), "profile.txt")
@@ -2981,7 +3321,7 @@ def main() -> int:
              "int8_resnet101_512": r8_launches, **v8_launches,
              "entry_fused2_bf16": ep["launches_fused2"], "entry_int8": ep["launches_int8"],
              "entry_http_fused2_bf16": ep["launches_http_fused2_bf16"],
-             "entry_http_int8": ep["launches_http_int8"]}
+             "entry_http_int8": ep["launches_http_int8"], **parallel["launches"]}
     # A kernel's own main path: bf16 serving for K1-K4, the VID_320
     # int8 path for K5 (its library_ms is per shape, in chiprun_out/k5_shapes.json).
     own = lambda r: "int8_vid320" if r["wrapper"] == "qconv" else "bf16_serving"
@@ -3007,6 +3347,7 @@ def main() -> int:
     log(f"training: {json.dumps(train)}")
     log(f"input pipeline: {json.dumps(dict(loader, topk_tie_trials=topk_trials, native=native))}")
     log(f"fidelity smoke: {json.dumps(fidelity)}")
+    log(f"parallel: {json.dumps({k: v for k, v in parallel.items() if k != 'launches'})}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

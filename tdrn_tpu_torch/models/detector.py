@@ -149,9 +149,20 @@ class TDRN(nn.Module):
         """x: (chunk*B, size, size, 3) preprocessed frames (NHWC,
         mean-subtracted; 4 channels, raw rgb + ones, under fold_mean);
         state: per-scale (B, C, f, f) tensors or None (zeros)."""
+        return self.forward_sources(self.backbone(self.stem_input(x)), state)
+
+    def stem_input(self, x: torch.Tensor) -> torch.Tensor:
+        """The backbone's input: x zero-padded in channels under pad_stem."""
         if self.pad_stem and x.shape[-1] < self.pad_stem:
             x = F.pad(x, (0, self.pad_stem - x.shape[-1]))
-        sources = self.backbone(x)
+        return x
+
+    def forward_sources(
+        self, sources, state: Optional[State] = None
+    ) -> Tuple[RawPredictions, Optional[State]]:
+        """The forward after the backbone, from its four source maps (NCHW):
+        L2Norm, ARM, TCB, re-sampling, the temporal cell and ODM."""
+        sources = list(sources)
         sources[0] = self.l2norm0(sources[0])
         sources[1] = self.l2norm1(sources[1])
         arm_loc, arm_conf = self.arm(sources)

@@ -6,6 +6,9 @@ computed in fp32, applied to the conv4_3 / conv5_3 feature maps.
 QConv: the int8 conv of the int8 serving profile (utils/quantize.py), on the
 K5 wrapper (ops/qconv.py).
 
+Segment: one link of a backbone's forward chain with its receptive radius
+and stride along H (parallel/spatial.py splits the chain along H).
+
 FQConv: its train-time twin for quantization-aware fine-tuning
 (utils/quantize.apply_qat): a plain conv whose input and kernel are snapped
 to QConv's int8 grids, with straight-through gradients.
@@ -13,10 +16,24 @@ to QConv's int8 grids, with straight-through gradients.
 
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
 import torch
 import torch.nn as nn
 
 from tdrn_tpu_torch.ops.qconv import act_scale, dequant_factor, pack_weight, qconv
+
+
+class Segment(NamedTuple):
+    """One link of a backbone's forward, ``fn(x) -> y``. Output row ``o``
+    reads input rows ``[o*stride - radius, (o+1)*stride + radius)`` (zero
+    padding outside the image); ``source`` marks a source map of the
+    detector. A backbone's ``forward`` is its ``segments()`` run in order."""
+
+    fn: Callable[[torch.Tensor], torch.Tensor]
+    radius: int
+    stride: int
+    source: bool = False
 
 
 class L2Norm(nn.Module):

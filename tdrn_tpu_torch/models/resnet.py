@@ -16,6 +16,9 @@ with a bias, then its own norm.
   * ``"group"``: GroupNorm over gcd(32, C) groups with epsilon 1e-6, its
     statistics (mean and E[x^2] - mean^2) and the affine in fp32 whatever the
     compute dtype, the result cast back once: flax's ``nn.GroupNorm``.
+Under an H-split forward (parallel/spatial.py) a GroupNorm's statistics
+cover the whole frame, not the rows a rank holds: within
+:func:`group_norm_statistics` they come from the function it installs.
 The leaves of both norms are named ``scale`` and ``bias``, as the JAX
 param tree names them, so the key rules of weights.py apply unchanged.
 
@@ -28,18 +31,39 @@ in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import List
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tdrn_tpu_torch.models.layers import conv1x1, conv3x3, to_compute_dtype
+from tdrn_tpu_torch.models.layers import Segment, conv1x1, conv3x3, to_compute_dtype
 
 DEPTHS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 NORMS = ("frozen", "group")
 GROUP_NORM_EPS = 1e-6
+# The stem's 7x7/2 conv and 3x3/2 max-pool: pooled row q reads input rows
+# 4q - 5 to 4q + 5.
+STEM_RADIUS, STEM_STRIDE = 5, 4
+
+# (grouped input) -> (E[x], E[x^2]) over each group, installed by
+# group_norm_statistics; None: the input's own statistics.
+_group_statistics: Optional[Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]] = None
+
+
+@contextlib.contextmanager
+def group_norm_statistics(fn):
+    """Within the block, every GroupNorm takes its mean and mean square from
+    ``fn(g)``, g the fp32 input grouped as (B, groups, C/groups, H, W), each
+    returned as (B, groups, 1, 1, 1)."""
+    global _group_statistics
+    prev, _group_statistics = _group_statistics, fn
+    try:
+        yield
+    finally:
+        _group_statistics = prev
 
 
 def resnet_conv_chain(depth: int) -> List[str]:
@@ -82,8 +106,12 @@ class GroupNorm(nn.Module):
         b, c, h, w = x.shape
         grouped = (1, self.groups, c // self.groups, 1, 1)
         g = x.float().reshape(b, self.groups, c // self.groups, h, w)
-        mean = g.mean(dim=(2, 3, 4), keepdim=True)
-        var = ((g * g).mean(dim=(2, 3, 4), keepdim=True) - mean * mean).clamp_min(0.0)
+        if _group_statistics is None:
+            mean = g.mean(dim=(2, 3, 4), keepdim=True)
+            var = ((g * g).mean(dim=(2, 3, 4), keepdim=True) - mean * mean).clamp_min(0.0)
+        else:
+            mean, mean_sq = _group_statistics(g)
+            var = (mean_sq - mean * mean).clamp_min(0.0)
         mul = torch.rsqrt(var + GROUP_NORM_EPS) * self.scale.float().reshape(grouped)
         y = (g - mean) * mul + self.bias.float().reshape(grouped)
         return y.reshape(b, c, h, w).to(x.dtype)
@@ -145,15 +173,30 @@ class ResNetBackbone(nn.Module):
         self.out_channels = (4 * w(128), 4 * w(256), 4 * w(512), w(512))
 
     def forward(self, x_nhwc: torch.Tensor) -> List[torch.Tensor]:
-        x = to_compute_dtype(x_nhwc, self.stem).permute(0, 3, 1, 2)
-        x = F.relu(self.stem_bn(self.stem(x)))
-        x = F.max_pool2d(x, 3, 2, padding=1)
-        sources = []
+        sources, x = [], x_nhwc
+        for seg in self.segments():
+            x = seg.fn(x)
+            if seg.source:
+                sources.append(x)
+        return sources
+
+    def segments(self) -> List[Segment]:
+        """The forward as a chain: the stem (NHWC in, NCHW out), each
+        bottleneck (the last of stages 2-4 give C3, C4 and C5; C3 is the
+        first source) and the extra stage."""
+        segs = [Segment(self._stem_map, STEM_RADIUS, STEM_STRIDE)]
         for si, n in enumerate(DEPTHS[self.depth]):
             for bi in range(n):
-                x = getattr(self, f"stage{si + 1}_{bi}")(x)
-            if si >= 1:  # C3, C4, C5
-                sources.append(x)
-        y = F.relu(self.extra1(x))
-        sources.append(F.relu(self.extra2(y)))
-        return sources
+                block = getattr(self, f"stage{si + 1}_{bi}")
+                stride = 2 if (bi == 0 and si > 0) else 1
+                segs.append(Segment(block, 1, stride, si >= 1 and bi == n - 1))
+        segs.append(Segment(self._extra, 1, 2, True))
+        return segs
+
+    def _stem_map(self, x_nhwc: torch.Tensor) -> torch.Tensor:
+        x = to_compute_dtype(x_nhwc, self.stem).permute(0, 3, 1, 2)
+        x = F.relu(self.stem_bn(self.stem(x)))
+        return F.max_pool2d(x, 3, 2, padding=1)
+
+    def _extra(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.extra2(F.relu(self.extra1(x))))

@@ -36,19 +36,24 @@ under pad-stem (conv stem only; utils/precision.py).
 
 from __future__ import annotations
 
+import functools
 from typing import List
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tdrn_tpu_torch.models.layers import QConv, conv1x1, conv3x3, to_compute_dtype
+from tdrn_tpu_torch.models.layers import QConv, Segment, conv1x1, conv3x3, to_compute_dtype
 from tdrn_tpu_torch.ops.stem import fused_conv_stage, fused_stem_stage1
 
 # (num_convs, channels) per VGG stage.
 _STAGES = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
 STEMS = ("conv", "s2d", "poly", "poly2", "fused", "fused2")
 QUANT_STEMS = ("conv", "s2d")  # the stems an int8 (QConv) backbone takes
+# By stem: (the first stage left to run after it, its radius and stride in
+# input rows). K3 reads 2 rows either side; K3 then K4 reads 2 + 2 * 2.
+_STEM_SEGMENT = {"conv": (0, 0, 1), "s2d": (0, 0, 2), "poly": (1, 2, 2), "poly2": (1, 2, 2),
+                 "fused": (1, 2, 2), "fused2": (2, 6, 4)}
 
 
 def _hwio(conv: nn.Conv2d) -> torch.Tensor:
@@ -141,25 +146,47 @@ class VGG16Reduced(nn.Module):
         """x: (B, H, W, in_channels) preprocessed frames, NHWC; returns NCHW maps."""
         if self.quant and self.stem not in QUANT_STEMS:
             raise ValueError(f"an int8 vgg16 backbone takes the {QUANT_STEMS} stems only")
-        x, start_stage = self._stem(to_compute_dtype(x_nhwc, self.conv1_1))
-        sources = []
-        for si, (n, _) in enumerate(_STAGES):
-            if si < start_stage:
-                continue
-            for ci in range(n):
-                x = F.relu(getattr(self, f"conv{si + 1}_{ci + 1}")(x))
-            if si in (3, 4):  # conv4_3 / conv5_3 outputs (pre-pool)
+        sources, x = [], x_nhwc
+        for seg in self.segments():
+            x = seg.fn(x)
+            if seg.source:
                 sources.append(x)
-            if si < 4 and not (si == 0 and self.stem == "s2d"):  # s2d: no pool1
-                x = F.max_pool2d(x, 2, 2)
+        return sources
+
+    def segments(self) -> List[Segment]:
+        """The forward as a chain: the stem (NHWC in, NCHW out), the stages
+        it leaves (conv4_3, pre-pool, is the first source), then pool4 and
+        stage 5 (conv5_3), pool5 + conv6 + conv7 and conv6_1 + conv6_2."""
+        start, radius, stride = _STEM_SEGMENT[self.stem]
+        segs = [Segment(self._stem_map, radius, stride)]
+        for si in range(start, 4):
+            pool = si < 3 and not (si == 0 and self.stem == "s2d")  # s2d: no pool1
+            segs.append(Segment(functools.partial(self._stage, si, pool), _STAGES[si][0],
+                                2 if pool else 1, si == 3))
+        segs.append(Segment(self._stage5, 2 * 3, 2, True))
+        segs.append(Segment(self._fc, 2 * 3, 2, True))  # conv6's dilation of 3
+        segs.append(Segment(self._extra, 1, 2, True))
+        return segs
+
+    def _stem_map(self, x_nhwc: torch.Tensor) -> torch.Tensor:
+        return self._stem(to_compute_dtype(x_nhwc, self.conv1_1))[0]
+
+    def _stage(self, si: int, pool: bool, x: torch.Tensor) -> torch.Tensor:
+        for ci in range(_STAGES[si][0]):
+            x = F.relu(getattr(self, f"conv{si + 1}_{ci + 1}")(x))
+        return F.max_pool2d(x, 2, 2) if pool else x
+
+    def _stage5(self, x: torch.Tensor) -> torch.Tensor:
+        return self._stage(4, False, F.max_pool2d(x, 2, 2))  # pool4, then conv5_x
+
+    def _fc(self, x: torch.Tensor) -> torch.Tensor:
         x = F.max_pool2d(x, 2, 2)  # pool5, stride 2
         x = F.relu(self.conv6(x))
-        x = F.relu(self.conv7(x))
-        sources.append(x)
+        return F.relu(self.conv7(x))
+
+    def _extra(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.conv6_1(x))
-        x = F.relu(self.conv6_2(x))
-        sources.append(x)
-        return sources
+        return F.relu(self.conv6_2(x))
 
     @property
     def quant(self) -> bool:

@@ -10,7 +10,10 @@
 
 Matching and mining are fixed-shape tensor operations over the whole batch,
 so the loss runs on the device with no loop over images. Losses are
-normalized by the positive count over the batch.
+normalized by the positive count over the batch. ``count_reduce`` turns a
+rank's count into the count of the global batch (an all_reduce, in the
+data-parallel step of train/trainer.py) before the clamp to 1, as the JAX
+package's single program counts over the whole sharded batch.
 
 Mining picks the JAX package's anchors: a stable descending sort of the
 background CE (``torch.argsort(stable=True)``, as ``jnp.argsort`` is stable),
@@ -20,7 +23,7 @@ floats. ``torch.topk`` orders ties otherwise and is not used.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -30,6 +33,7 @@ from tdrn_tpu_torch.ops.detection import RawPredictions
 from tdrn_tpu_torch.ops.matching import match_batch
 
 Tensor = torch.Tensor
+CountReduce = Optional[Callable[[Tensor], Tensor]]
 
 
 class Targets(NamedTuple):
@@ -50,6 +54,14 @@ def _cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return logz - gold
+
+
+def _positives(pos: Tensor, count_reduce: CountReduce) -> Tensor:
+    """max(number of positives, 1) as float32, the count reduced first."""
+    n = pos.sum()
+    if count_reduce is not None:
+        n = count_reduce(n)
+    return torch.clamp(n, min=1).float()
 
 
 def _mine_negatives(ce_bg: Tensor, pos: Tensor, eligible: Tensor,
@@ -85,14 +97,15 @@ def multibox_loss(
     cfg: DetectorConfig,
     neg_pos_ratio: float = 3.0,
     overlap_thresh: float = 0.5,
+    count_reduce: CountReduce = None,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Single-stage MultiBox loss for the plain SSD model: match, SmoothL1 on
     positives and CE with 3:1 sort-based hard-negative mining, normalized by
-    the batch's positive count."""
+    the batch's positive count (``count_reduce`` of it)."""
     m = match_batch(targets.boxes, targets.labels, targets.valid, priors,
                     overlap_thresh, cfg.variance)
     pos = m.conf_targets > 0
-    n = torch.clamp(pos.sum(), min=1).float()
+    n = _positives(pos, count_reduce)
     loc_l = torch.where(pos[..., None], smooth_l1(loc_pred - m.loc_targets), 0.0).sum()
     ce = _cross_entropy(conf_pred, m.conf_targets)
     bg_ce = _cross_entropy(conf_pred, torch.zeros_like(m.conf_targets))
@@ -109,16 +122,18 @@ def refine_multibox_loss(
     cfg: DetectorConfig,
     neg_pos_ratio: float = 3.0,
     overlap_thresh: float = 0.5,
+    count_reduce: CountReduce = None,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Returns (total loss, metrics with the arm/odm loc and conf parts and the
-    positive counts)."""
+    positive counts). ``count_reduce`` maps each positive count to the one
+    the losses are divided by (default: the batch's own)."""
     var = cfg.variance
 
     # ARM: binary objectness against the static priors.
     arm_m = match_batch(targets.boxes, torch.zeros_like(targets.labels), targets.valid,
                         priors, overlap_thresh, var)
     arm_pos = arm_m.conf_targets > 0  # (B, P)
-    n_arm = torch.clamp(arm_pos.sum(), min=1).float()
+    n_arm = _positives(arm_pos, count_reduce)
     arm_loc_l = torch.where(arm_pos[..., None], smooth_l1(preds.arm_loc - arm_m.loc_targets),
                             0.0).sum()
     arm_ce = _cross_entropy(preds.arm_conf, arm_pos.to(torch.int32))
@@ -134,7 +149,7 @@ def refine_multibox_loss(
     arm_bg = torch.softmax(preds.arm_conf.detach(), dim=-1)[..., 0]
     keep = arm_bg <= cfg.arm_filter_thresh
     odm_pos = (odm_m.conf_targets > 0) & keep
-    n_odm = torch.clamp(odm_pos.sum(), min=1).float()
+    n_odm = _positives(odm_pos, count_reduce)
     odm_loc_l = torch.where(odm_pos[..., None], smooth_l1(preds.odm_loc - odm_m.loc_targets),
                             0.0).sum()
     odm_ce = _cross_entropy(preds.odm_conf, odm_m.conf_targets)

@@ -20,6 +20,15 @@ losses, bf16 compute and QAT, as functions on an explicit train state:
     autograd; ``remat`` checkpoints each frame's forward
     (``torch.utils.checkpoint``, non-reentrant).
 
+With a parallel/mesh.py ``mesh`` the step is data-parallel: each rank
+runs it on its rows of the global batch, the losses are divided by the
+positive counts of the global batch (each all-reduced before the clamp to
+1), and the gradients are summed over the ranks (one flat all-reduce,
+before the global-norm clip), so every rank applies the update of the
+one-process step on the global batch: the JAX package's jitted step on a
+``data`` mesh. A per-rank normalized, averaged gradient (DDP's default)
+would differ whenever the ranks hold different numbers of positives.
+
 The step's parts run under ``record_function`` ranges (``tdrn::forward``,
 ``tdrn::loss`` with ``tdrn::match`` and ``tdrn::mine`` inside it,
 ``tdrn::backward``, ``tdrn::optimizer``), which tools/train_bench_torch.py
@@ -42,7 +51,8 @@ from torch.utils.checkpoint import checkpoint
 from tdrn_tpu_torch.config import DetectorConfig
 from tdrn_tpu_torch.models.temporal import init_state
 from tdrn_tpu_torch.ops.priors import prior_boxes
-from tdrn_tpu_torch.train.loss import Targets, refine_multibox_loss
+from tdrn_tpu_torch.parallel.mesh import Mesh, all_reduce_sum_
+from tdrn_tpu_torch.train.loss import CountReduce, Targets, refine_multibox_loss
 from tdrn_tpu_torch.utils.precision import FP32_SUBTREES
 
 Tensor = torch.Tensor
@@ -162,16 +172,18 @@ def _forward(model, params: Params, x: Tensor, state):
         return functional_call(model, params, (x, state))
 
 
-def _loss(preds, priors, targets, cfg):
+def _loss(preds, priors, targets, cfg, count_reduce: CountReduce = None):
     with record_function("tdrn::loss"):
-        return refine_multibox_loss(preds, priors, targets, cfg)
+        return refine_multibox_loss(preds, priors, targets, cfg, count_reduce=count_reduce)
 
 
 def _clip_loss(model, params: Params, frames: Tensor, targets: Targets, priors: Tensor,
-               cfg: DetectorConfig, remat: bool = False, dtype: torch.dtype = torch.float32):
+               cfg: DetectorConfig, remat: bool = False, dtype: torch.dtype = torch.float32,
+               count_reduce: CountReduce = None):
     """Run the model over a (T, B, H, W, 3) clip, carrying the temporal state
     from a zero state in ``dtype``; the mean of the per-frame losses and
-    metrics. ``remat`` recomputes each frame's forward in the backward."""
+    metrics, each frame divided by its own positive counts. ``remat``
+    recomputes each frame's forward in the backward."""
     batch = frames.shape[1]
     state = init_state(batch, cfg.feature_maps, model.tcb_channels, dtype, frames.device)
     losses, per_frame = [], []
@@ -182,7 +194,8 @@ def _clip_loss(model, params: Params, frames: Tensor, targets: Targets, priors: 
         else:
             preds, state = _forward(model, params, frames[t], state)
         loss, metrics = _loss(
-            preds, priors, Targets(targets.boxes[t], targets.labels[t], targets.valid[t]), cfg)
+            preds, priors, Targets(targets.boxes[t], targets.labels[t], targets.valid[t]), cfg,
+            count_reduce)
         losses.append(loss)
         per_frame.append(metrics)
     mean = {k: torch.stack([m[k] for m in per_frame]).mean() for k in per_frame[0]}
@@ -190,13 +203,23 @@ def _clip_loss(model, params: Params, frames: Tensor, targets: Targets, priors: 
 
 
 def _image_loss(model, params: Params, images: Tensor, targets: Targets, priors: Tensor,
-                cfg: DetectorConfig, dtype: torch.dtype = torch.float32):
+                cfg: DetectorConfig, dtype: torch.dtype = torch.float32,
+                count_reduce: CountReduce = None):
     state = None
     if model.temporal_enabled:
         state = init_state(images.shape[0], cfg.feature_maps, model.tcb_channels, dtype,
                            images.device)
     preds, _ = _forward(model, params, images, state)
-    return _loss(preds, priors, targets, cfg)
+    return _loss(preds, priors, targets, cfg, count_reduce)
+
+
+def _global_metrics(metrics: Dict[str, Tensor], mesh: Mesh) -> Dict[str, Tensor]:
+    """The metrics of the global batch: the rank's loss and loss parts
+    (already divided by the global counts) summed over the ranks in one
+    all-reduce; the positive counts are global already."""
+    keys = [k for k in metrics if not k.startswith("num_pos")]
+    summed = all_reduce_sum_([torch.stack([metrics[k] for k in keys])], mesh)[0]
+    return {**metrics, **dict(zip(keys, summed.unbind(0)))}
 
 
 def make_train_step(
@@ -206,6 +229,7 @@ def make_train_step(
     remat: bool = False,
     compute_dtype: Optional[torch.dtype] = None,
     qat_scales: Optional[Dict[str, float]] = None,
+    mesh: Optional[Mesh] = None,
 ):
     """The train step ``(ts, images, targets) -> (ts, metrics)``.
 
@@ -236,6 +260,10 @@ def make_train_step(
 
         loss_model = apply_qat(model, qat_scales)
     priors_by_device: Dict[torch.device, Tensor] = {}
+    reduce_over = mesh if mesh is not None and mesh.group is not None else None
+    count_reduce = None
+    if reduce_over is not None:
+        count_reduce = lambda n: all_reduce_sum_([n], reduce_over)[0]  # noqa: E731
 
     def loss_fn(params: Params, images: Tensor, targets: Targets):
         priors = priors_by_device.get(images.device)
@@ -244,8 +272,9 @@ def make_train_step(
         if dtype != torch.float32:
             params = cast_compute(params, dtype)
         if clip_mode:
-            return _clip_loss(loss_model, params, images, targets, priors, cfg, remat, dtype)
-        return _image_loss(loss_model, params, images, targets, priors, cfg, dtype)
+            return _clip_loss(loss_model, params, images, targets, priors, cfg, remat, dtype,
+                              count_reduce)
+        return _image_loss(loss_model, params, images, targets, priors, cfg, dtype, count_reduce)
 
     def train_step(ts: TrainState, images: Tensor, targets: Targets):
         params = {k: v.detach().requires_grad_(True) for k, v in ts.params.items()}
@@ -254,11 +283,16 @@ def make_train_step(
             grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(params.items(), grads)}
+        if reduce_over is not None:
+            with record_function("tdrn::all_reduce"):
+                all_reduce_sum_(list(grads.values()), reduce_over)
         with record_function("tdrn::optimizer"):
             updates, opt_state = optimizer.update(grads, ts.opt_state, ts.params)
             new = TrainState(apply_updates(ts.params, updates), opt_state, ts.step + 1)
         out = {k: v.detach() for k, v in metrics.items()}
         out["loss"] = loss.detach()
+        if reduce_over is not None:
+            out = _global_metrics(out, reduce_over)
         return new, out
 
     return train_step

@@ -57,7 +57,8 @@ def test_import_leaves_out_jax_and_tdrn_tpu():
     assert "tdrn_tpu_torch.eval.runner" in mods and "tdrn_tpu_torch.eval.voc_eval" in mods
     for m in ("inference", "train.checkpoint", "data.image", "data.voc", "data.vid",
               "eval.motion", "utils.logging", "ops.matching", "train.loss", "train.trainer",
-              "data.augment", "data.loader", "data.process_loader", "data.native"):
+              "data.augment", "data.loader", "data.process_loader", "data.native",
+              "parallel.distributed", "parallel.mesh", "parallel.spatial", "parallel.dryrun"):
         assert f"tdrn_tpu_torch.{m}" in mods, m
     mods += SCRIPTS
     code = (
@@ -234,10 +235,21 @@ def test_entry_points_refuse_without_cuda():
     from tools import train_bench_torch
 
     for main, argv in ((train_torch.main, ["--data_root", ROOT]),
+                       (train_torch.main, ["--data_root", ROOT, "--multihost"]),
                        (train_bench_torch.main, ["--config", "tiny_64"])):
         for extra in ([], ["--device", "cuda"]):
             with pytest.raises(RuntimeError, match="CUDA"):
                 main(argv + extra)
+    # The data-parallel entry points: the dry run and the rank's device.
+    from tdrn_tpu_torch.parallel import init_distributed, local_device, make_mesh
+    from tdrn_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    for call in (lambda: dryrun_multichip(2, "tiny"), lambda: dryrun_multichip(2, "tiny", "cuda"),
+                 local_device, make_mesh,
+                 lambda: init_distributed("localhost:1", 2, 0)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert local_device("cpu") == torch.device("cpu")
 
 
 def test_unported_options_raise():
@@ -377,3 +389,25 @@ def test_qconv_wrapper_rejects_bad_input():
     ]:
         with pytest.raises((TypeError, ValueError)):
             qconv(*args, **kw)
+
+
+def test_train_step_sums_its_gradients():
+    """The data-parallel step sums the gradients over the ranks, between
+    autograd.grad and the optimizer (so the global-norm clip sees the global
+    gradient); no module of the port wraps a model in DistributedDataParallel,
+    whose averaging would scale each rank's count-normalized loss by 1/world,
+    unless it registers a comm hook in the same file."""
+    with open(os.path.join(PKG, "train", "trainer.py")) as fh:
+        src = fh.read()
+    step = src[src.index("def train_step("):]
+    order = [step.index(s) for s in ("torch.autograd.grad(", "all_reduce_sum_(list(grads.values())",
+                                     "optimizer.update(")]
+    assert order == sorted(order), order
+    assert "count_reduce" in src[src.index("def make_train_step("):]
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(dirpath, f)) as fh:
+                    text = fh.read()
+                if re.search(r"\bDistributedDataParallel\s*\(", text):
+                    assert "register_comm_hook" in text, f

@@ -17,6 +17,25 @@ The augmentation needs ``cv2``. ``--loader processes`` (or train.py's
 ``grain``) fetches and augments in worker processes instead of threads,
 with the same batches for a seed. ``--width_mult`` and ``--tcb_channels``
 build a narrower model (smoke runs); both are written to the meta file.
+
+Data-parallel training (``--multihost``, as train.py has it) runs one
+process a card, launched by torchrun:
+
+    torchrun --nproc_per_node 4 train_torch.py --dataset voc_320 \
+        --data_root /data/VOCdevkit --batch_size 8 --multihost
+
+or on each host with RANK and WORLD_SIZE set and ``--coordinator
+host0:1234``. ``--batch_size`` is the batch of one process, as in train.py:
+the global batch is ``batch_size * world``. Each rank trains on
+``cuda:LOCAL_RANK``; the step divides by the global batch's positive
+counts and sums the gradients over the ranks (train/trainer.py). The
+weights are drawn, grafted, or restored from the un-offset ``--seed`` and
+broadcast from rank 0; only the input seeds differ by rank: the thread
+loader, its dataset and augmentation and the ``--mixed_frames`` loader take
+``seed + rank``, while the worker-process loader takes the global batch
+(``batch_size * world``) from the common seed and keeps rank r's rows of
+it. Only rank 0 writes the meta file, checkpoints, the metrics log and
+TensorBoard.
 """
 
 from __future__ import annotations
@@ -69,6 +88,10 @@ def parse_args(argv=None):
     ap.add_argument("--temporal_cell", default="convgru", choices=["convgru", "light", "hybrid"])
     ap.add_argument("--stem", default="conv", choices=["conv", "poly", "poly2", "s2d"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--multihost", action="store_true",
+                    help="data-parallel over torch.distributed processes (torchrun, or "
+                         "RANK/WORLD_SIZE and --coordinator); --batch_size is per process")
+    ap.add_argument("--coordinator", default=None, help="host:port for multihost")
     ap.add_argument("--log_every", type=int, default=10)
     ap.add_argument("--tensorboard", action="store_true",
                     help="also write the logged metrics as TensorBoard events under "
@@ -116,12 +139,27 @@ def main(argv=None):
     from tdrn_tpu_torch.data.loader import make_loader
     from tdrn_tpu_torch.data.process_loader import make_process_loader
     from tdrn_tpu_torch.models.detector import build_detector
+    from tdrn_tpu_torch.parallel import replicate_tree
     from tdrn_tpu_torch.train import (Targets, init_train_state, make_optimizer,
                                       make_train_step)
     from tdrn_tpu_torch.train.checkpoint import CheckpointManager, restore_params
     from tdrn_tpu_torch.utils.logging import MetricsLogger
 
     dev = _build.resolve_device(args.device)
+    mesh = None
+    rank, world = 0, 1
+    if args.multihost:
+        from tdrn_tpu_torch.parallel import init_distributed, local_device, make_mesh
+
+        init_distributed(args.coordinator, device=args.device)
+        dev = local_device(args.device)
+        mesh = make_mesh(dev)
+        rank, world = mesh.rank, mesh.world
+        print(f"process {rank}/{world} on {dev}")
+    lead = rank == 0  # the one rank that writes
+    # The input seed: the worker-process loader shards one global batch
+    # stream, the thread loader decorrelates ranks by seed (train.py).
+    data_seed = args.seed + (rank if args.loader == "threads" else 0)
     cfg = get_config(args.dataset)
     # The masters (and checkpoints) are always fp32; --bf16 selects the
     # mixed-precision compute path inside the train step.
@@ -132,18 +170,18 @@ def main(argv=None):
     )
     weights.init_weights(model, torch.Generator().manual_seed(args.seed))
 
-    aug = SSDAugmentation(cfg.size, cfg.pixel_means, seed=args.seed,
+    aug = SSDAugmentation(cfg.size, cfg.pixel_means, seed=data_seed,
                           photometric=not args.no_photometric)
     if args.clip:
         dataset = VIDDetection(args.data_root, "train", mode="clip", seq_len=args.seq_len,
-                               transform=aug, seed=args.seed)
+                               transform=aug, seed=data_seed)
     elif args.dataset.startswith("vid"):
         dataset = VIDDetection(args.data_root, "train", mode="frame", transform=aug,
-                               seed=args.seed)
+                               seed=data_seed)
     else:
         sets = tuple(tuple(p.split(":")) for p in args.image_sets.split(","))
         try:
-            dataset = VOCDetection(args.data_root, image_sets=sets, transform=aug, seed=args.seed)
+            dataset = VOCDetection(args.data_root, image_sets=sets, transform=aug, seed=data_seed)
         except FileNotFoundError as e:
             raise SystemExit(f"dataset split not found under {args.data_root} "
                              f"(--image_sets {args.image_sets}): {e}")
@@ -155,7 +193,9 @@ def main(argv=None):
             f"but the dataset has {n_fg} foreground classes")
     print(f"dataset: {len(dataset)} samples; priors: {cfg.num_priors}")
 
-    if args.pretrained:
+    # The weights come from rank 0 (replicate_tree below): the other ranks
+    # neither graft nor restore.
+    if args.pretrained and lead:
         if args.backbone == "resnet101":
             if args.backbone_norm != "frozen":
                 raise SystemExit("--pretrained resnet weights need --backbone_norm frozen")
@@ -165,7 +205,7 @@ def main(argv=None):
             if skipped:
                 print(f"pretrained: skipped {skipped}")
         print(f"pretrained: grafted {len(loaded)} tensors from {args.pretrained}")
-    if args.init_from:
+    if args.init_from and lead:
         out = restore_params(args.init_from, model.state_dict())
         if out is None:
             raise SystemExit(f"--init_from: no checkpoint in {args.init_from}")
@@ -178,32 +218,35 @@ def main(argv=None):
     opt = make_optimizer(args.lr, args.momentum, args.weight_decay, args.warmup,
                          args.milestones, args.gamma, grad_clip_norm=args.grad_clip)
     ts = init_train_state(model, opt)
-    ckpt = CheckpointManager(args.save_folder, save_every=args.save_every)
-    # Construction flags beside the checkpoints, so the inference CLIs
-    # rebuild the exact model without the train-time flags.
-    ckpt.save_meta({
-        "dataset": args.dataset,
-        "backbone": args.backbone,
-        "temporal": bool(args.clip),
-        "stem": args.stem,
-        "temporal_cell": args.temporal_cell,
-        "backbone_norm": args.backbone_norm,
-        "tcb_channels": args.tcb_channels,
-        "width_mult": args.width_mult,
-        "bf16": bool(args.bf16),
-        "qat": bool(args.qat),
-        "optimizer": {
-            "lr": args.lr, "momentum": args.momentum,
-            "weight_decay": args.weight_decay, "warmup": args.warmup,
-            "milestones": list(args.milestones), "gamma": args.gamma,
-            "grad_clip": args.grad_clip,
-        },
-    })
-    if args.resume:
+    ckpt = CheckpointManager(args.save_folder, save_every=args.save_every) if lead else None
+    if lead:
+        # Construction flags beside the checkpoints, so the inference CLIs
+        # rebuild the exact model without the train-time flags.
+        ckpt.save_meta({
+            "dataset": args.dataset,
+            "backbone": args.backbone,
+            "temporal": bool(args.clip),
+            "stem": args.stem,
+            "temporal_cell": args.temporal_cell,
+            "backbone_norm": args.backbone_norm,
+            "tcb_channels": args.tcb_channels,
+            "width_mult": args.width_mult,
+            "bf16": bool(args.bf16),
+            "qat": bool(args.qat),
+            "optimizer": {
+                "lr": args.lr, "momentum": args.momentum,
+                "weight_decay": args.weight_decay, "warmup": args.warmup,
+                "milestones": list(args.milestones), "gamma": args.gamma,
+                "grad_clip": args.grad_clip,
+            },
+        })
+    if args.resume and lead:  # the other ranks take rank 0's state below
         restored = ckpt.restore_latest(ts)
         if restored is not None:
             ts = restored
             print(f"resumed at step {ts.step}")
+    if mesh is not None:
+        ts = replicate_tree(ts, mesh)
 
     qat_scales = None
     if args.qat:
@@ -213,19 +256,26 @@ def main(argv=None):
         print(f"qat: fake-quantizing {len(qat_scales)} convs on {args.int8_scales}")
     step_fn = make_train_step(model, opt, clip_mode=args.clip, remat=args.remat,
                               compute_dtype=torch.bfloat16 if args.bf16 else None,
-                              qat_scales=qat_scales)
-    logger = MetricsLogger(args.save_folder, tensorboard=args.tensorboard,
-                           echo_every=args.log_every)
-    make = make_loader if args.loader == "threads" else make_process_loader
+                              qat_scales=qat_scales, mesh=mesh)
+    logger = (MetricsLogger(args.save_folder, tensorboard=args.tensorboard,
+                            echo_every=args.log_every) if lead else None)
     pin = dev.type == "cuda"
-    loader = make(dataset, batch_size=args.batch_size, num_workers=args.num_workers,
-                  clip_mode=args.clip, seed=args.seed, pin_memory=pin)
+
+    def make(ds, batch_size, num_workers, seed, clip_mode=False):
+        if args.loader == "threads":
+            return make_loader(ds, batch_size=batch_size, num_workers=num_workers,
+                               clip_mode=clip_mode, seed=seed, pin_memory=pin)
+        # One global batch of batch_size * world a step; rank r keeps its rows.
+        return make_process_loader(ds, batch_size=batch_size * world, num_workers=num_workers,
+                                   clip_mode=clip_mode, seed=seed, pin_memory=pin, rank=rank,
+                                   world=world)
+
+    loader = make(dataset, args.batch_size, args.num_workers, data_seed, clip_mode=args.clip)
     frame_loader = None
     if args.mixed_frames:
         frame_ds = VIDDetection(args.data_root, "train", mode="frame", transform=aug,
-                                seed=args.seed + 7919)
-        frame_loader = make(frame_ds, batch_size=args.mixed_frames, num_workers=2,
-                            seed=args.seed + 7919, pin_memory=pin)
+                                seed=data_seed + 7919)
+        frame_loader = make(frame_ds, args.mixed_frames, 2, data_seed + 7919)
 
     def on_device(images, boxes, labels, valid):
         return images.to(dev, non_blocking=True), Targets(
@@ -240,26 +290,31 @@ def main(argv=None):
                 break
             ts, metrics = step_fn(ts, *on_device(images, boxes, labels, valid))
             steps_done += 1
-            ckpt.maybe_save(ts, step=steps_done)
+            if lead:
+                ckpt.maybe_save(ts, step=steps_done)
             if frame_loader is not None and steps_done < args.max_iter:
                 # Independent frames as a T=1 clip through the same train step.
                 ts, fmetrics = step_fn(ts, *on_device(*(t[None] for t in next(frame_loader))))
                 metrics = dict(metrics, frame_loss=fmetrics["loss"])
                 steps_done += 1
-                ckpt.maybe_save(ts, step=steps_done)
+                if lead:
+                    ckpt.maybe_save(ts, step=steps_done)
             if steps_done - steps_logged >= args.log_every:
                 logged = {k: float(v) for k, v in metrics.items()}
                 now = time.perf_counter()
                 logged["steps_per_sec"] = (steps_done - steps_logged) / (now - t_last)
                 t_last, steps_logged = now, steps_done
-                logger.log(steps_done, logged)
-        ckpt.maybe_save(ts, force=True)
-        ckpt.wait()
+                if lead:
+                    logger.log(steps_done, logged)
+        if lead:
+            ckpt.maybe_save(ts, force=True)
+            ckpt.wait()
     finally:
         loader.close()
         if frame_loader is not None:
             frame_loader.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
     print("training complete")
     return ts, logged
 
