@@ -27,9 +27,11 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
+from tdrn_tpu_torch import _build
 from tdrn_tpu_torch.data import VID_CLASSES, VOC_CLASSES, image
-from tdrn_tpu_torch.inference import StreamingDetector, load_inference_model
+from tdrn_tpu_torch.inference import StreamingDetector, capture, load_inference_model
 from tdrn_tpu_torch.serving import InferenceServer
+from tdrn_tpu_torch.utils.logging import span
 
 
 def parse_args(argv=None):
@@ -107,6 +109,26 @@ def detect_request(server, class_names, sync: bool, stream: str, rgb: np.ndarray
     return {"stream": stream, "detections": dets}
 
 
+def health(server) -> dict:
+    """The /healthz body: the server's counts, its request latency and queue
+    wait (percentiles of the last 2048, ms), the process's host ranges
+    (``span.totals``: calls and seconds of the dispatcher's parts and of the
+    step's), and its set-up: the step's graph captures and their seconds,
+    the kernel libraries' first loads in seconds, and the sources nvcc
+    compiled for them."""
+    return {
+        "ok": True, "steps": server.steps,
+        "frames": server.frames,
+        "prefilter_overflow_frames": server.overflow_frames,
+        "latency": server.latency.snapshot(),
+        "queue_wait": server.queue_wait.snapshot(),
+        "spans": {name: {"calls": c, "s": sec} for name, (c, sec) in dict(span.totals).items()},
+        "setup": {"captures": server.det.captures, "capture_s": capture.seconds,
+                  "library_s": sum(_build.library.seconds.values()),
+                  "compiled": _build.build_all.compiled},
+    }
+
+
 def make_handler(server, class_names, sync: bool):
     """The HTTP request handler class over ``server``."""
 
@@ -124,12 +146,7 @@ def make_handler(server, class_names, sync: bool):
 
         def do_GET(self):
             if urlparse(self.path).path == "/healthz":
-                self._json(200, {
-                    "ok": True, "steps": server.steps,
-                    "frames": server.frames,
-                    "prefilter_overflow_frames": server.overflow_frames,
-                    "latency": server.latency.snapshot(),
-                })
+                self._json(200, health(server))
             else:
                 self._json(404, {"error": "not found"})
 

@@ -7,6 +7,11 @@ under the repository root. The hash covers the source, the shared headers
 exactly when one of them changes, at the first call that needs it.
 ``build_all`` starts every nvcc at once.
 
+Set-up counters of the process: ``build_all.compiled``, the sources nvcc
+compiled; ``library.seconds``, each library's first load in seconds (the
+nvcc version check, any build and the ``ctypes`` load), which the
+benchmark's ``setup.build_s`` reads.
+
 Pointers and the CUDA stream go to the C functions as ``c_void_p``; each C
 function launches on the stream it is given, allocates nothing and returns
 ``cudaGetLastError()``, which :func:`check` turns into an exception.
@@ -22,6 +27,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict
 
 import torch
@@ -135,9 +141,13 @@ def build_all(names=None) -> Dict[str, str]:
             failed.append(f"nvcc failed for {name}.cu:\n{out}")
             continue
         os.replace(tmp, path)  # atomic: a concurrent process sees all or nothing
+        build_all.compiled += 1
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs
+
+
+build_all.compiled = 0
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -148,6 +158,7 @@ def library(name: str) -> ctypes.CDLL:
             return lib
         if not torch.cuda.is_available():
             raise RuntimeError(f"kernel {name} needs a CUDA device")
+        t0 = time.perf_counter()
         build_all([name])
         lib = ctypes.CDLL(_lib_path(name))
         fn_name, argtypes = _SIGNATURES[name]
@@ -155,7 +166,11 @@ def library(name: str) -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _libs[name] = lib
+        library.seconds[name] = time.perf_counter() - t0
         return lib
+
+
+library.seconds = {}
 
 
 def entry(name: str):

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -30,6 +31,7 @@ from tdrn_tpu_torch.ops.nms import TopDetections
 from tdrn_tpu_torch.ops.preprocess import preprocess_batch
 from tdrn_tpu_torch.ops.priors import prior_boxes
 from tdrn_tpu_torch.train import checkpoint
+from tdrn_tpu_torch.utils.logging import span
 from tdrn_tpu_torch.utils.precision import apply_inference_precision
 from tdrn_tpu_torch.utils.quantize import apply_int8_backbone, load_act_scales
 
@@ -43,7 +45,12 @@ def capture(fn, device, after=None):
     are dropped. ``after(outputs)``, if given, is captured behind fn (the
     streaming step's in-place state update). Each replay overwrites the
     outputs in place. A failed capture raises.
+
+    ``capture.seconds`` sums the process's captures, warm-up and capture,
+    up to a synchronize of the device: the card's warm-up work, not only its
+    enqueue (set-up, read by the benchmark's ``setup.capture_s``).
     """
+    t0 = time.perf_counter()
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
@@ -56,7 +63,12 @@ def capture(fn, device, after=None):
         out = fn()
         if after is not None:
             after(out)
+    torch.cuda.synchronize(device)
+    capture.seconds += time.perf_counter() - t0
     return graph, out
+
+
+capture.seconds = 0.0
 
 
 class _StepGraph:
@@ -68,6 +80,11 @@ class _StepGraph:
     behind its last copy has passed, so the copies to the card run
     asynchronously and the host never overwrites a buffer still in flight.
     Frames already on the card are copied from where they are.
+
+    Host ranges (``span``): ``tdrn::stage`` around ``load``, with
+    ``tdrn::stage_wait`` around its wait on the buffer's event inside it;
+    ``tdrn::replay`` around the graph's launch and ``tdrn::clone`` around
+    the outputs' copies. None lies inside the captured step.
     """
 
     def __init__(self, det: "StreamingDetector", shape):
@@ -89,23 +106,27 @@ class _StepGraph:
 
     def load(self, frames: torch.Tensor, masks: np.ndarray) -> None:
         """Copy one step's inputs into the static inputs, on the current stream."""
-        host_frames, host_masks, done = self._pinned[self._turn]
-        self._turn ^= 1
-        done.synchronize()  # the copies that last read these buffers have run
-        host_masks.copy_(torch.from_numpy(masks))
-        self.masks.copy_(host_masks, non_blocking=True)
-        if frames.is_cuda:
-            self.frames.copy_(frames)
-        else:
-            host_frames.copy_(frames)
-            self.frames.copy_(host_frames, non_blocking=True)
-        done.record()
+        with span("tdrn::stage"):
+            host_frames, host_masks, done = self._pinned[self._turn]
+            self._turn ^= 1
+            with span("tdrn::stage_wait"):
+                done.synchronize()  # the copies that last read these buffers have run
+            host_masks.copy_(torch.from_numpy(masks))
+            self.masks.copy_(host_masks, non_blocking=True)
+            if frames.is_cuda:
+                self.frames.copy_(frames)
+            else:
+                host_frames.copy_(frames)
+                self.frames.copy_(host_frames, non_blocking=True)
+            done.record()
 
     def replay(self) -> TopDetections:
         """Run the step; returns copies of the outputs, which the next replay
         overwrites in place."""
-        self.graph.replay()
-        return TopDetections(*(None if t is None else t.clone() for t in self.out))
+        with span("tdrn::replay"):
+            self.graph.replay()
+        with span("tdrn::clone"):
+            return TopDetections(*(None if t is None else t.clone() for t in self.out))
 
 
 class StreamingDetector:
@@ -118,7 +139,8 @@ class StreamingDetector:
     On the card each frame shape is captured once as a CUDA graph, after one
     eager warm-up step, and replayed after; ``captures`` and ``replays``
     count them. A capture or replay that fails raises: there is no eager
-    fallback.
+    fallback. Each ``detect`` is one ``tdrn::detect`` host range (``span``),
+    on the card and on the CPU.
     """
 
     def __init__(
@@ -241,22 +263,23 @@ class StreamingDetector:
         tensor. active: optional (S,) 0/1 mask, numpy or a tensor on any
         device; lanes with 0 do not advance their state this step and their
         detections must be ignored."""
-        with self._reset_lock:
-            pending = self._pending_reset
-            self._pending_reset = set()
-        masks = np.zeros((2, self.num_streams), np.float32)  # reset, active
-        masks[0, sorted(pending)] = 1.0
-        if active is not None:  # a tensor on the card is read back here, before the step
-            masks[1] = torch.as_tensor(active, dtype=torch.float32, device="cpu").numpy()
-        else:
-            masks[1] = 1.0
-        try:
-            return self._run(self._frames(frames_u8), masks)
-        except Exception:
-            # A failed step must not swallow queued clip-boundary resets.
+        with span("tdrn::detect"):
             with self._reset_lock:
-                self._pending_reset |= pending
-            raise
+                pending = self._pending_reset
+                self._pending_reset = set()
+            masks = np.zeros((2, self.num_streams), np.float32)  # reset, active
+            masks[0, sorted(pending)] = 1.0
+            if active is not None:  # a tensor on the card is read back here, before the step
+                masks[1] = torch.as_tensor(active, dtype=torch.float32, device="cpu").numpy()
+            else:
+                masks[1] = 1.0
+            try:
+                return self._run(self._frames(frames_u8), masks)
+            except Exception:
+                # A failed step must not swallow queued clip-boundary resets.
+                with self._reset_lock:
+                    self._pending_reset |= pending
+                raise
 
 
 def make_clip_forward(model: TDRN, top_k: Optional[int] = None, device=None):

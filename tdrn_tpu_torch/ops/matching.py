@@ -26,6 +26,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from tdrn_tpu_torch.ops import boxes as B
+from tdrn_tpu_torch.utils.logging import span
 
 Tensor = torch.Tensor
 
@@ -93,5 +94,5 @@ def match_batch(
     priors are (P, 4) (shared) or (B, P, 4) (per-image refined anchors)."""
     if priors_cxcywh.dim() not in (2, 3):
         raise ValueError(f"priors must be (P, 4) or (B, P, 4), got {tuple(priors_cxcywh.shape)}")
-    with torch.profiler.record_function("tdrn::match"):
+    with span("tdrn::match"):
         return match(truths, labels, valid, priors_cxcywh, threshold, variances)

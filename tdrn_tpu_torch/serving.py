@@ -9,6 +9,16 @@ Lane policy: a stream id is pinned to a lane on first use (LRU eviction when
 full; the evicted stream's queued requests fail and the lane's state is reset
 for its new stream). At most one frame per lane per step keeps each stream's
 frames in order.
+
+The dispatcher's parts are host ranges of the program (``span``):
+``tdrn::serve_idle`` (waiting for a request), ``tdrn::serve_window`` (the
+coalescing window), ``tdrn::serve_assemble`` (taking the batch and filling
+the frames), ``tdrn::detect`` (the step), ``tdrn::serve_fetch`` (the
+outputs to the host) and ``tdrn::serve_deliver`` (results and wake-ups).
+Their totals are in serve_torch.py's /healthz; a profiler started on another
+thread records them only with ``_ExperimentalConfig(profile_all_threads=True)``,
+as ``utils/logging.py::profile_trace`` sets it. ``queue_wait`` holds each
+request's wait from submit to its batch.
 """
 
 from __future__ import annotations
@@ -21,21 +31,24 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from tdrn_tpu_torch.data import image
+from tdrn_tpu_torch.utils.logging import span
 
 
 class _Pending:
-    __slots__ = ("frame", "event", "result")
+    __slots__ = ("frame", "event", "result", "submitted")
 
     def __init__(self, frame: np.ndarray):
         self.frame = frame
+        self.submitted = time.monotonic()
         self.event = threading.Event()
         self.result: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
 
 
 class LatencyStats:
-    """Ring of the last N request latencies -> percentile snapshot: end-to-end
-    request latency (enqueue -> result ready, the coalescing window and any
-    queueing included, not only device time)."""
+    """Ring of the last N request times -> percentile snapshot. The server's
+    ``latency``: end-to-end request latency (enqueue -> result ready, the
+    coalescing window and any queueing included, not only device time); its
+    ``queue_wait``: enqueue -> taken into a batch."""
 
     def __init__(self, cap: int = 2048):
         self._lat: List[float] = []
@@ -81,6 +94,7 @@ class InferenceServer:
         # (ops/detection.py prefilter_overflow); 0 when the exact path is on.
         self.overflow_frames = 0
         self.latency = LatencyStats()
+        self.queue_wait = LatencyStats()
         # One step before the dispatcher starts, so the first request does
         # not pay for building the kernels and capturing the step's CUDA
         # graph. The capture runs here, on the constructing thread, while no
@@ -112,14 +126,13 @@ class InferenceServer:
         (boxes01 (K,4), scores (K,), classes (K,)) as numpy.
         """
         req = _Pending(self._fit(frame_u8))
-        t0 = time.monotonic()
         with self._lock:
             lane = self._assign_lane(stream_id)
             self._queues[lane].append(req)
         self._wakeup.set()
         if not req.event.wait(timeout):
             raise TimeoutError(f"inference timed out for stream {stream_id}")
-        self.latency.record(time.monotonic() - t0)
+        self.latency.record(time.monotonic() - req.submitted)
         if req.result is None:
             raise RuntimeError(
                 f"stream {stream_id} was evicted under lane pressure before "
@@ -182,32 +195,41 @@ class InferenceServer:
     def _dispatch_loop(self):
         frames = np.zeros((self.lanes, self.size, self.size, 3), np.uint8)
         while not self._stop.is_set():
-            self._wakeup.wait(timeout=0.1)
+            with span("tdrn::serve_idle"):
+                self._wakeup.wait(timeout=0.1)
             self._wakeup.clear()
             if self._stop.is_set():
                 return
             # Coalescing window: let concurrent requests join this step.
-            time.sleep(self.window_s)
-            with self._lock:
-                batch: List[Tuple[int, _Pending]] = []
-                for lane, q in self._queues.items():
-                    if q:
-                        batch.append((lane, q.pop(0)))  # one per lane per step
-                more_pending = any(self._queues.values())
+            with span("tdrn::serve_window"):
+                time.sleep(self.window_s)
+            with span("tdrn::serve_assemble"):
+                with self._lock:
+                    taken = time.monotonic()
+                    batch: List[Tuple[int, _Pending]] = []
+                    for lane, q in self._queues.items():
+                        if q:
+                            batch.append((lane, q.pop(0)))  # one per lane per step
+                    more_pending = any(self._queues.values())
+                active = np.zeros((self.lanes,), np.float32)
+                for lane, req in batch:
+                    frames[lane] = req.frame
+                    active[lane] = 1.0
+                    self.queue_wait.record(taken - req.submitted)
             if not batch:
                 continue
-            active = np.zeros((self.lanes,), np.float32)
-            for lane, req in batch:
-                frames[lane] = req.frame
-                active[lane] = 1.0
             out = self.det.detect(frames, active=active)
-            boxes, scores, classes = (t.cpu().numpy() for t in (out.boxes, out.scores, out.classes))
-            if out.prefilter_overflow is not None:
-                ovf = out.prefilter_overflow.cpu().numpy()
-                self.overflow_frames += int(sum(ovf[lane] for lane, _ in batch))
-            for lane, req in batch:
-                req.result = (boxes[lane], scores[lane], classes[lane])
-                req.event.set()
+            with span("tdrn::serve_fetch"):
+                boxes, scores, classes = (t.cpu().numpy()
+                                          for t in (out.boxes, out.scores, out.classes))
+                ovf = out.prefilter_overflow
+                ovf = None if ovf is None else ovf.cpu().numpy()
+            with span("tdrn::serve_deliver"):
+                if ovf is not None:
+                    self.overflow_frames += int(sum(ovf[lane] for lane, _ in batch))
+                for lane, req in batch:
+                    req.result = (boxes[lane], scores[lane], classes[lane])
+                    req.event.set()
             self.steps += 1
             self.frames += len(batch)
             if more_pending:

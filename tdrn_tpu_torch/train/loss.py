@@ -31,6 +31,7 @@ from tdrn_tpu_torch.config import DetectorConfig
 from tdrn_tpu_torch.ops import boxes as B
 from tdrn_tpu_torch.ops.detection import RawPredictions
 from tdrn_tpu_torch.ops.matching import match_batch
+from tdrn_tpu_torch.utils.logging import span
 
 Tensor = torch.Tensor
 CountReduce = Optional[Callable[[Tensor], Tensor]]
@@ -72,7 +73,7 @@ def _mine_negatives(ce_bg: Tensor, pos: Tensor, eligible: Tensor,
     pos: (B, P) positive mask. eligible: (B, P) anchors allowed as negatives.
     Returns the (B, P) negative mask, ~ratio * num_pos entries per image.
     """
-    with torch.profiler.record_function("tdrn::mine"):
+    with span("tdrn::mine"):
         return _mine(ce_bg, pos, eligible, neg_pos_ratio)
 
 

@@ -29,10 +29,11 @@ one-process step on the global batch: the JAX package's jitted step on a
 ``data`` mesh. A per-rank normalized, averaged gradient (DDP's default)
 would differ whenever the ranks hold different numbers of positives.
 
-The step's parts run under ``record_function`` ranges (``tdrn::forward``,
-``tdrn::loss`` with ``tdrn::match`` and ``tdrn::mine`` inside it,
-``tdrn::backward``, ``tdrn::optimizer``), which tools/train_bench_torch.py
-reads from a torch.profiler trace.
+The step's parts run under the program's host ranges (``span`` of
+utils/logging.py: ``tdrn::forward``, ``tdrn::loss`` with ``tdrn::match`` and
+``tdrn::mine`` inside it, ``tdrn::backward``, ``tdrn::all_reduce``,
+``tdrn::optimizer``), which tools/train_bench_torch.py reads from a
+torch.profiler trace.
 
 The model must be a float training model: its state is its parameters (no
 buffers, so no int8 QConvs).
@@ -45,7 +46,6 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch.func import functional_call
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from tdrn_tpu_torch.config import DetectorConfig
@@ -53,6 +53,7 @@ from tdrn_tpu_torch.models.temporal import init_state
 from tdrn_tpu_torch.ops.priors import prior_boxes
 from tdrn_tpu_torch.parallel.mesh import Mesh, all_reduce_sum_
 from tdrn_tpu_torch.train.loss import CountReduce, Targets, refine_multibox_loss
+from tdrn_tpu_torch.utils.logging import span
 from tdrn_tpu_torch.utils.precision import FP32_SUBTREES
 
 Tensor = torch.Tensor
@@ -168,12 +169,12 @@ def cast_compute(params: Params, dtype: torch.dtype,
 
 
 def _forward(model, params: Params, x: Tensor, state):
-    with record_function("tdrn::forward"):
+    with span("tdrn::forward"):
         return functional_call(model, params, (x, state))
 
 
 def _loss(preds, priors, targets, cfg, count_reduce: CountReduce = None):
-    with record_function("tdrn::loss"):
+    with span("tdrn::loss"):
         return refine_multibox_loss(preds, priors, targets, cfg, count_reduce=count_reduce)
 
 
@@ -279,14 +280,14 @@ def make_train_step(
     def train_step(ts: TrainState, images: Tensor, targets: Targets):
         params = {k: v.detach().requires_grad_(True) for k, v in ts.params.items()}
         loss, metrics = loss_fn(params, images, targets)
-        with record_function("tdrn::backward"):
+        with span("tdrn::backward"):
             grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(params.items(), grads)}
         if reduce_over is not None:
-            with record_function("tdrn::all_reduce"):
+            with span("tdrn::all_reduce"):
                 all_reduce_sum_(list(grads.values()), reduce_over)
-        with record_function("tdrn::optimizer"):
+        with span("tdrn::optimizer"):
             updates, opt_state = optimizer.update(grads, ts.opt_state, ts.params)
             new = TrainState(apply_updates(ts.params, updates), opt_state, ts.step + 1)
         out = {k: v.detach() for k, v in metrics.items()}

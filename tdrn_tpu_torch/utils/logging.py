@@ -1,17 +1,21 @@
 """Structured metrics logging and profiling helpers (the port of
 ``tdrn_tpu/utils/logging.py``): a JSONL metrics logger with an optional
 TensorBoard writer (``torch.utils.tensorboard``), a wall-clock stage timer
-that fences on the card, and a ``torch.profiler`` trace around a window."""
+that fences on the card, a ``torch.profiler`` trace around a window, and
+``span``, the program's named host ranges (``tdrn::*``)."""
 
 from __future__ import annotations
 
 import contextlib
 import json
 import os
+import threading
 import time
 from typing import Any, Dict, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _ExperimentalConfig
 
 TRACE_FILE = "trace.json"
 
@@ -57,7 +61,8 @@ class MetricsLogger:
 def profile_trace(log_dir: Optional[str]):
     """Profile the enclosed window with torch.profiler (host and, on a CUDA
     machine, the card's kernels) and write its Chrome trace to
-    ``<log_dir>/trace.json`` (Perfetto, chrome://tracing). Yields the
+    ``<log_dir>/trace.json`` (Perfetto, chrome://tracing). Every thread's
+    ``span`` ranges are recorded, the serving dispatcher's too. Yields the
     profiler (``key_averages()``), or None if ``log_dir`` is None."""
     if not log_dir:
         yield None
@@ -66,7 +71,8 @@ def profile_trace(log_dir: Optional[str]):
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
+    every_thread = _ExperimentalConfig(profile_all_threads=True)
+    with torch.profiler.profile(activities=activities, experimental_config=every_thread) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 
@@ -93,3 +99,55 @@ class Timer:
         if fence is not None:
             _fence(fence)
         self.times[name] = self.times.get(name, 0.0) + time.perf_counter() - start
+
+
+_totals_lock = threading.Lock()
+
+
+class _Span:
+    """An entered ``span``: its host seconds added to ``span.totals`` on
+    exit, inside a ``record_function`` range while a profiler runs."""
+
+    __slots__ = ("name", "_range", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = (torch.profiler.record_function(name)
+                       if _autograd_profiler._is_profiler_enabled else None)
+
+    def __enter__(self):
+        if self._range is not None:
+            self._range.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        seconds = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        with _totals_lock:
+            total = span.totals.setdefault(self.name, [0, 0.0])
+            total[0] += 1
+            total[1] += seconds
+        return False
+
+
+def span(name: str):
+    """A named host range of the program, ``tdrn::<part>`` by convention.
+
+    Every closed range adds its host seconds to ``span.totals``,
+    ``{name: [calls, seconds]}``, in memory, for the life of the process
+    (two clock reads and a dict add, about a microsecond). While a profiler
+    runs anywhere in the process the range is also a
+    ``torch.profiler.record_function``, so it lies on the profiler's
+    timeline beside the device's events. The gate is torch's process-wide
+    profiler flag, which every thread reads alike (the thread-local
+    ``torch.autograd._profiler_enabled()`` reads False on a thread other
+    than the profiler's). A profiler started on one thread records another
+    thread's ranges only with ``_ExperimentalConfig(profile_all_threads=True)``,
+    as ``profile_trace`` sets it.
+    """
+    return _Span(name)
+
+
+span.totals = {}
