@@ -14,7 +14,7 @@
                                      # (VID_320) and profile_int8_resnet101_512.txt
 
 1. Prints the card (nvidia-smi name and power limit) and the torch / CUDA versions.
-2. Builds the five kernels from tdrn_tpu_torch/csrc/*.cu with nvcc for sm_90a,
+2. Builds the six kernels from tdrn_tpu_torch/csrc/*.cu with nvcc for sm_90a,
    one nvcc per source, all at once, into build/tdrn_tpu_torch/.
 3. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (B=16, vid_320) and at a chunk-2 step's (B=32; K2 at
@@ -89,7 +89,21 @@
    with TF32 off (1e-3 of max|ref|); logs max|source| per scale. Then the
    group-norm ResNet-101 at S=4: graphed against eager over 4 steps with a
    reset and an inactive lane.
-6c. Drives the plain SSD baseline at full width on VOC_320 (fp32, TF32 off):
+6c. K6 (ops/affine_act.py, csrc/affine_act.cu) on the ResNet-101 vid_512
+   bf16 model at B=16: the 100 sites of one backbone forward recorded (every
+   one channels_last-contiguous); on each distinct shape and shortcut (the
+   stem; each stage's conv1 and conv2 outputs; conv3 with the identity and
+   with the proj shortcut), with a conv bias and without (the QConv case),
+   K6 bit-equal to its plain version, and with NaN and infinities planted;
+   each shape timed (flushed median of 30) with its bound in bytes at 3.35
+   TB/s and the plain PyTorch passes beside it, summed over a forward's
+   sites (rows to chiprun_out/k6_shapes.json). Then one whole backbone
+   forward: K6 launched 100 times with no site unfused, its sources against the
+   unfused forward (max|diff| logged, bit-equal expected), the FrozenBN
+   inputs' strides of the unfused forward logged, both forwards timed. The
+   profiler counts K6 100 times a replayed step on the bf16 and the int8
+   ResNet-101 paths (phase 8).
+6d. Drives the plain SSD baseline at full width on VOC_320 (fp32, TF32 off):
    ssd_detect_topk at B=1 and B=8, K2 launched once a call and no other
    kernel, the detections equal to the same function with K2's plain
    version on the card, one image's raw predictions against the CPU (1e-3 of
@@ -241,8 +255,8 @@
      one-rank one (no speed-up is expected from two ranks on one card);
    - NCCL at world > 1 is logged as unverified (one GPU).
 9. Prints {"kernels": [...]} (K5's entry holds the VID_320 int8 step's sum
-   and each path's; its per-shape rows go to chiprun_out/k5_shapes.json)
-   and, last, {"ok": true, "device": {...}}.
+   and each path's; its per-shape rows go to chiprun_out/k5_shapes.json),
+   {"k6": {...}} and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises; there is no fallback to the CPU. It imports nothing
 of JAX or of the JAX package tdrn_tpu. TF32 is off for every check, so the
@@ -743,6 +757,7 @@ KERNEL_NAMES = {
     "fused_stem_stage1": ("stem_tc_kernel", "stem_kernel"),
     "fused_conv_stage": ("conv_stage_kernel",),
     "qconv": ("qconv_kernel",),
+    "affine_act": ("affine_act_kernel",),
 }
 
 
@@ -1250,17 +1265,22 @@ def log_server(what, card, res):
 
 
 @contextlib.contextmanager
+def swapped(owner, name, value):
+    """owner.name set to value while the block runs."""
+    real = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
 def k2_replaced(fn):
     """ops/nms.py's K2 wrapper replaced by fn(real_wrapper) while the block
     runs: a recorder of its calls, or K2's plain version."""
     from tdrn_tpu_torch.ops import nms as nms_mod
 
-    real = nms_mod.suppress_sorted
-    nms_mod.suppress_sorted = fn(real)
-    try:
-        yield
-    finally:
-        nms_mod.suppress_sorted = real
+    return swapped(nms_mod, "suppress_sorted", fn(nms_mod.suppress_sorted))
 
 
 def kernels_512(torch, rng, results, card):
@@ -1444,6 +1464,187 @@ def resnet_group_path(torch, counters):
     _, launches, held = drive_graphed(torch, counters, model, frames, (1, 1), (2, 3),
                                       "ResNet-101 group norm vid_512 bf16")
     return launches, held
+
+
+K6_SITES = 100  # K6 launches a ResNet-101 forward: the stem and 33 bottlenecks x 3
+
+
+def k6_off():
+    """models/resnet.py dispatching every site to its modules' own ops (the
+    unfused forward) while the block runs."""
+    from tdrn_tpu_torch.models import resnet as resnet_mod
+
+    return swapped(resnet_mod, "_fuses", lambda *a: False)
+
+
+def _k6_operands(torch, gen, shape, kind, conv_bias):
+    """Seeded operands of one K6 site: a conv output (N(0, 3)), a shortcut
+    of the same shape, and bf16 (C,) vectors (conv bias N(0, 0.1), scale
+    in [0.1, 2), bias N(0, 0.5)); the proj's own three likewise."""
+    dev, b16 = "cuda", torch.bfloat16
+    c = shape[1]
+    cl = lambda: (torch.randn(shape, generator=gen, device=dev) * 3).to(b16).contiguous(
+        memory_format=torch.channels_last)
+    vec = lambda lo, hi: (torch.rand(c, generator=gen, device=dev) * (hi - lo) + lo).to(b16)
+    normal = lambda sd: (torch.randn(c, generator=gen, device=dev) * sd).to(b16)
+    chain = lambda: ((normal(0.1) if conv_bias else None), vec(0.1, 2.0), normal(0.5))
+    x, (cb, sc, bi) = cl(), chain()
+    short = None
+    if kind == "identity":
+        short = cl()
+    elif kind == "proj":
+        from tdrn_tpu_torch.ops.affine_act import Proj
+        short = Proj(cl(), *chain())
+    return x, cb, sc, bi, short
+
+
+def _k6_bytes(shape, kind):
+    """K6's bytes at a site: the map read and written, the shortcut read
+    (bf16), and the per-channel vectors."""
+    n = int(np.prod(shape))
+    return 2 * (2 * n + (n if kind != "none" else 0) + 6 * shape[1])
+
+
+def phase_affine_act(torch, model, card):
+    """K6 (ops/affine_act.py, csrc/affine_act.cu) on the ResNet-101 vid_512
+    bf16 model at B=16: every distinct (shape, shortcut) of its 100 sites,
+    recorded from one forward, with a conv bias and without (the QConv
+    case), bit-equal to the plain version (also with NaN and infinities
+    planted); each timed (flushed median of 30) with its bound in bytes, the
+    plain PyTorch passes beside it, and both summed over a forward's sites.
+    Then one whole backbone forward in the cell's configuration: K6
+    launched 100 times with no site unfused, its sources against the unfused
+    forward's, and both forwards timed; the conv outputs' strides of the
+    unfused forward logged. Rows to chiprun_out/k6_shapes.json."""
+    from tdrn_tpu_torch.models import resnet as resnet_mod
+    from tdrn_tpu_torch.models.resnet import conv_norm
+    from tdrn_tpu_torch.ops.affine_act import Proj, affine_act, affine_act_plain
+    from tdrn_tpu_torch.ops.preprocess import preprocess_batch
+
+    frames = np.random.default_rng(SEED + 17).integers(0, 256, (B, 512, 512, 3), np.uint8)
+    x = preprocess_batch(torch.tensor(frames).cuda(), model.cfg, model.dtype)
+    sites = []
+
+    def recorder(real):
+        def record(c, conv_bias, scale, bias, shortcut=None):
+            kind = ("proj" if isinstance(shortcut, Proj) else
+                    "none" if shortcut is None else "identity")
+            sites.append((tuple(c.shape), kind, conv_bias is not None,
+                          c.is_contiguous(memory_format=torch.channels_last)))
+            return real(c, conv_bias, scale, bias, shortcut)
+        return record
+
+    bits = lambda t: t.view(torch.int16)
+    with torch.inference_mode():
+        launches, unfused = affine_act.launches, conv_norm.unfused
+        with swapped(resnet_mod, "affine_act", recorder(resnet_mod.affine_act)):
+            got = model.backbone(x)
+        torch.cuda.synchronize()
+        n_launch, n_unfused = affine_act.launches - launches, conv_norm.unfused - unfused
+        log(f"  one backbone forward (B={B}, 512x512, bf16): K6 launches {n_launch}, "
+            f"unfused FrozenBN sites {n_unfused}; every site channels_last-contiguous: "
+            f"{all(s[3] for s in sites)}")
+        check(n_launch == K6_SITES and n_unfused == 0,
+              f"ResNet-101 forward: K6 launched {n_launch} times with {n_unfused} unfused "
+              f"sites, expected {K6_SITES} and 0")
+        strides, handles = [], []
+        for name, m in model.backbone.named_modules():
+            if isinstance(m, resnet_mod.FrozenBN):
+                handles.append(m.register_forward_pre_hook(
+                    lambda mod, inp, name=name: strides.append((name, tuple(inp[0].shape),
+                                                                inp[0].stride()))))
+        unfused = conv_norm.unfused
+        with k6_off():
+            ref = model.backbone(x)
+        for h in handles:
+            h.remove()
+        check(conv_norm.unfused - unfused == K6_SITES,
+              "the unfused forward did not run every site on the modules' own ops")
+        diffs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, ref)]
+        equal = all(torch.equal(bits(a), bits(b)) for a, b in zip(got, ref))
+        log(f"  sources against the unfused forward: max|diff| per scale {diffs}; "
+            f"bit-equal {equal}")
+        log(f"  unfused forward, FrozenBN inputs (conv outputs with their bias): "
+            f"{len(strides)} of them, e.g. {strides[0]}, {strides[-1]}; channels_last "
+            f"strides at all: {all(st[1] == 1 for _, _, st in strides)}")
+        fwd_ms = time_ms(torch, lambda: model.backbone(x), reps=10, warmup=2)
+        with k6_off():
+            unfused_ms = time_ms(torch, lambda: model.backbone(x), reps=10, warmup=2)
+        log(f"  backbone forward B={B} eager: with K6 {fwd_ms:.3f} ms, unfused "
+            f"{unfused_ms:.3f} ms on {card}")
+        del got, ref
+
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+        count = {}
+        for shape, kind, _, _ in sites:
+            count[(shape, kind)] = count.get((shape, kind), 0) + 1
+        rows = []
+        for (shape, kind), n in count.items():
+            for conv_bias in (True, False):
+                args = _k6_operands(torch, gen, shape, kind, conv_bias)
+                want = affine_act_plain(*args)
+                got = affine_act(args[0].clone(), *args[1:])
+                check(torch.equal(bits(got), bits(want)),
+                      f"K6 differs from its plain version at {shape} {kind} "
+                      f"conv_bias={conv_bias}")
+                row = dict(shape=list(shape), shortcut=kind, conv_bias=conv_bias, sites=n, bound_ms=_k6_bytes(shape, kind) / PEAK_BYTES * 1e3)
+                if conv_bias:
+                    x0 = args[0]
+                    x0[0, :4, 0, 0] = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                                                    -0.0], dtype=torch.bfloat16, device="cuda")
+                    want = affine_act_plain(*args)
+                    got = affine_act(x0.clone(), *args[1:])
+                    check(torch.equal(bits(got), bits(want)),
+                          f"K6 differs from its plain version at {shape} {kind} with NaN and "
+                          f"infinities")
+                    row["ms"] = time_ms(torch, lambda: affine_act(x0, *args[1:]))
+                    row["plain_ms"] = time_ms(torch, lambda: affine_act_plain(*args))
+                    row["share"] = row["bound_ms"] / row["ms"]
+                    log(f"  K6 {shape} {kind}: {n} sites, bit-equal (with and without a conv "
+                        f"bias, and with NaN/inf); {row['ms']:.4f} ms, bound "
+                        f"{row['bound_ms']:.4f} ms (bytes, share {row['share']:.3f}), "
+                        f"plain passes {row['plain_ms']:.4f} ms on {card}")
+                rows.append(row)
+                del args, want, got
+        args = _k6_operands(torch, gen, (2, 64, 8, 8), "identity", True)
+        refused = {
+            "an NCHW map": (args[0].contiguous(),) + args[1:],
+            "an NCHW shortcut": args[:4] + (args[4].contiguous(),),
+            "a misaligned map": (torch.empty(2 * 64 * 8 * 8 + 1, dtype=torch.bfloat16,
+                                             device="cuda")[1:].view(2, 8, 8, 64)
+                                 .permute(0, 3, 1, 2),) + args[1:],
+            "an fp32 map": (args[0].float(),) + args[1:],
+            "12 channels": (args[0][:, :12],) + tuple(v[:12] for v in args[1:4])
+                           + (args[4][:, :12],),
+        }
+        for what, bad in refused.items():
+            try:
+                affine_act(*bad)
+            except (ValueError, TypeError):
+                continue
+            check(False, f"K6's wrapper took {what} on the card")
+        with torch.enable_grad():
+            try:
+                affine_act(args[0].clone().requires_grad_(True), *args[1:])
+                check(False, "K6's wrapper took a map that needs a gradient")
+            except ValueError:
+                pass
+        log(f"  K6's wrapper raises on the card for {', '.join(refused)} and a map that "
+            f"needs a gradient")
+        timed = [r for r in rows if r["conv_bias"]]
+        k6_ms = sum(r["ms"] * r["sites"] for r in timed)
+        k6_bound = sum(r["bound_ms"] * r["sites"] for r in timed)
+        plain_ms = sum(r["plain_ms"] * r["sites"] for r in timed)
+        log(f"  K6 summed over a forward's {sum(r['sites'] for r in timed)} sites: "
+            f"{k6_ms:.4f} ms, bound {k6_bound:.4f} ms (share {k6_bound / k6_ms:.3f}), "
+            f"the plain passes {plain_ms:.4f} ms on {card}")
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "k6_shapes.json"), "w") as f:
+        json.dump(dict(card=card, rows=rows, sites_per_forward=n_launch), f, indent=1)
+    return dict(name="affine_act", wrapper="affine_act", launches_per_forward=n_launch,
+                unfused_per_forward=n_unfused, sources_max_diff=max(diffs),
+                sources_bit_equal=equal, ms_per_forward=k6_ms, bound_ms_per_forward=k6_bound,
+                plain_ms_per_forward=plain_ms, backbone_ms=fwd_ms, backbone_unfused_ms=unfused_ms)
 
 
 # The other VGG stems and the temporal cells, each at vid_320 in the
@@ -3171,6 +3372,10 @@ def main() -> int:
     group_launches, group_held = resnet_group_path(torch, counters16)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
+    log("K6 affine_act against its plain version at the ResNet-101 vid_512 shapes (B=16):")
+    k6 = phase_affine_act(torch, model_r, card)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
     log("ResNet-101 vid_512 int8 path (resident bf16 + int8 with tcb and gru), graphed:")
     _, model_r8, r8_launches, r8_held, r8_checks, calls512 = int8_resnet_path(torch, counters8)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
@@ -3246,7 +3451,7 @@ def main() -> int:
     }
     per_step["resnet101_512"] = replayed_kernel_counts(
         torch, lambda: StreamingDetector(model_r, num_streams=STREAMS, prefilter=512), frames_r,
-        list(K12), "ResNet-101 vid_512 bf16")
+        list(K12) + ["affine_act"], "ResNet-101 vid_512 bf16", per_step={"affine_act": K6_SITES})
     names8 = [c.__name__ for c in counters8]
     per_step["int8_vid320"] = replayed_kernel_counts(
         torch, lambda: StreamingDetector(model8, num_streams=STREAMS, prefilter=512), frames8,
@@ -3254,8 +3459,8 @@ def main() -> int:
         banned=QUANTIZE_PASSES)
     per_step["int8_resnet101_512"] = replayed_kernel_counts(
         torch, lambda: StreamingDetector(model_r8, num_streams=STREAMS, prefilter=512), frames_r,
-        list(K12) + ["qconv"], "ResNet-101 vid_512 int8", per_step={"qconv": len(calls512)},
-        banned=QUANTIZE_PASSES)
+        list(K12) + ["qconv", "affine_act"], "ResNet-101 vid_512 int8",
+        per_step={"qconv": len(calls512), "affine_act": K6_SITES}, banned=QUANTIZE_PASSES)
     per_step["entry_fused2_bf16"] = replayed_kernel_counts(
         torch, lambda: StreamingDetector(ep_fused2, num_streams=STREAMS), frames16, names8,
         "restored fused2 bf16 (entry points)", per_step=EP_FUSED2)
@@ -3349,6 +3554,8 @@ def main() -> int:
     log(f"fidelity smoke: {json.dumps(fidelity)}")
     log(f"parallel: {json.dumps({k: v for k, v in parallel.items() if k != 'launches'})}")
     log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"k6": dict(k6, runs_per_replayed_step={
+        path: per_step[path]["affine_act"] for path in ("resnet101_512", "int8_resnet101_512")})}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

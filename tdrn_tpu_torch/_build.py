@@ -43,7 +43,7 @@ _COMMON = [
 # Per-source flags. nms_suppress keeps every IoU operation separately rounded
 # (no FMA contraction) so its keep mask is bit-equal to the plain version.
 _EXTRA = {"cascade": [], "nms_suppress": ["-fmad=false"], "stem": [], "conv_stage": [],
-          "qconv": []}
+          "qconv": [], "affine_act": []}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each kernel's entry point: (name, argtypes).
@@ -62,6 +62,9 @@ _SIGNATURES = {
     # stride, dilation, sb, sh, sw, sc, x_bf16, out_bf16, bn, splits, stages,
     # flat, kp, grid, stream
     "qconv": ("tdrn_qconv", [_P] * 7 + [_I] * 21 + [_P]),
+    # x, conv_bias (or null), scale, bias, res (or null), res_conv_bias,
+    # res_scale, res_bias (or null), rows, C, shortcut, stream
+    "affine_act": ("tdrn_affine_act", [_P] * 8 + [_I] * 3 + [_P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -27,6 +27,11 @@ bottleneck's conv1/conv2/conv3/proj and extra1/extra2 into QConvs
 (models/layers.py); the norms stay separate passes in the compute dtype, so
 a QConv's output is rounded once by its own cast and again by the norm, as
 in the JAX package.
+
+On the card, the stem's and each bottleneck's conv, bias, FrozenBN, shortcut
+and ReLU ops after a conv run as one K6 pass (ops/affine_act.py), bit-equal
+to them, where :func:`_fuses` finds its conditions; elsewhere (the CPU,
+gradients, GroupNorm, fp32, hooked modules) the modules' own ops run.
 """
 
 from __future__ import annotations
@@ -39,7 +44,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tdrn_tpu_torch.models.layers import Segment, conv1x1, conv3x3, to_compute_dtype
+from tdrn_tpu_torch.models.layers import QConv, Segment, conv1x1, conv3x3, to_compute_dtype
+from tdrn_tpu_torch.ops.affine_act import Proj, affine_act
 
 DEPTHS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 NORMS = ("frozen", "group")
@@ -125,6 +131,71 @@ def make_norm(norm: str, channels: int) -> nn.Module:
     raise ValueError(f"unknown resnet norm {norm!r} (one of {NORMS})")
 
 
+def _hooked(m: nn.Module) -> bool:
+    return bool(m._forward_hooks or m._forward_pre_hooks)
+
+
+def _channels_last(t: torch.Tensor) -> bool:
+    """channels_last-contiguous and 16-byte aligned: a map as K6 reads it."""
+    return t.is_contiguous(memory_format=torch.channels_last) and t.data_ptr() % 16 == 0
+
+
+def _fuses(conv: nn.Module, norm: nn.Module, x: torch.Tensor) -> bool:
+    """Whether ``norm(conv(x))`` and what follows it go to K6: on the card,
+    without gradients, a FrozenBN with bf16 leaves after a bf16 conv (a plain
+    ``nn.Conv2d``, whose bias K6 adds, or a QConv, which adds its own) of a
+    multiple of 8 channels, neither module hooked (a hook would miss its
+    call), on a channels_last, 16-byte aligned ``x``. The conv's output is
+    then channels_last too (cuDNN keeps its input's layout; a QConv writes
+    NHWC), so K6 takes it: K6 raises on a map it cannot take."""
+    bf16 = torch.bfloat16
+    if not (x.is_cuda and not torch.is_grad_enabled() and isinstance(norm, FrozenBN)
+            and norm.scale.dtype == bf16 and norm.bias.dtype == bf16
+            and not _hooked(conv) and not _hooked(norm) and _channels_last(x)):
+        return False
+    if isinstance(conv, QConv):
+        return conv.dtype == bf16 and conv.out_channels % 8 == 0
+    return (type(conv) is nn.Conv2d and conv.weight.dtype == bf16 and x.dtype == bf16
+            and (conv.bias is None or conv.bias.dtype == bf16) and conv.out_channels % 8 == 0)
+
+
+def _conv_out(conv: nn.Module, x: torch.Tensor):
+    """(conv's output without its bias, the bias): a QConv adds its own."""
+    if isinstance(conv, QConv):
+        return conv(x), None
+    return conv._conv_forward(x, conv.weight, None), conv.bias
+
+
+def conv_norm(conv: nn.Module, norm: nn.Module, x: torch.Tensor,
+              identity: Optional[torch.Tensor] = None, proj=None) -> torch.Tensor:
+    """``relu(norm(conv(x)) + shortcut)``: the shortcut ``identity``, or
+    ``proj_norm(proj_conv(proj_x))`` for ``proj = (proj_conv, proj_norm,
+    proj_x)``, or none. One K6 pass after the conv(s) where :func:`_fuses`
+    holds for every conv and norm and ``identity`` is a bf16 map as K6 reads
+    it; otherwise the modules' own ops, counted in ``conv_norm.unfused``
+    where the norm is a FrozenBN."""
+    if (_fuses(conv, norm, x) and (proj is None or _fuses(*proj))
+            and (identity is None
+                 or (identity.dtype == torch.bfloat16 and _channels_last(identity)))):
+        c, conv_bias = _conv_out(conv, x)
+        shortcut = identity
+        if proj is not None:
+            pconv, pnorm, px = proj
+            shortcut = Proj(*_conv_out(pconv, px), pnorm.scale, pnorm.bias)
+        return affine_act(c, conv_bias, norm.scale, norm.bias, shortcut)
+    if isinstance(norm, FrozenBN):
+        conv_norm.unfused += 1
+    y = norm(conv(x))
+    if proj is not None:
+        y = y + proj[1](proj[0](proj[2]))
+    elif identity is not None:
+        y = y + identity
+    return F.relu(y)
+
+
+conv_norm.unfused = 0
+
+
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 (strided) -> 1x1 (4x width) with a residual; the shortcut
     is ``proj`` + ``proj_bn`` where the width or the stride changes."""
@@ -143,11 +214,11 @@ class Bottleneck(nn.Module):
             self.proj_bn = make_norm(norm, out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shortcut = self.proj_bn(self.proj(x)) if hasattr(self, "proj") else x
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        return F.relu(y + shortcut)
+        y = conv_norm(self.conv1, self.bn1, x)
+        y = conv_norm(self.conv2, self.bn2, y)
+        if hasattr(self, "proj"):
+            return conv_norm(self.conv3, self.bn3, y, proj=(self.proj, self.proj_bn, x))
+        return conv_norm(self.conv3, self.bn3, y, identity=x)
 
 
 class ResNetBackbone(nn.Module):
@@ -195,8 +266,7 @@ class ResNetBackbone(nn.Module):
 
     def _stem_map(self, x_nhwc: torch.Tensor) -> torch.Tensor:
         x = to_compute_dtype(x_nhwc, self.stem).permute(0, 3, 1, 2)
-        x = F.relu(self.stem_bn(self.stem(x)))
-        return F.max_pool2d(x, 3, 2, padding=1)
+        return F.max_pool2d(conv_norm(self.stem, self.stem_bn, x), 3, 2, padding=1)
 
     def _extra(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.extra2(F.relu(self.extra1(x))))

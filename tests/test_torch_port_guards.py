@@ -204,7 +204,7 @@ def test_entry_point_signatures_match_the_sources():
                 for fn, params in _EXTERN_C.findall(fh.read()):
                     kinds = [_CTYPE[_param_kind(p)] for p in params.split(",")]
                     found[fn] = (f[:-3], kinds)
-    assert len(found) == len(_build._SIGNATURES) == 5
+    assert len(found) == len(_build._SIGNATURES) == 6
     assert _build._SIGNATURES["qconv"][0] == "tdrn_qconv"
     for name, (fn, argtypes) in _build._SIGNATURES.items():
         assert fn in found, f"{name}: no extern \"C\" {fn} in csrc/"
