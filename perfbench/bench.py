@@ -3,12 +3,16 @@ BENCHMARK.json, the program's model for a configuration, and the weights
 and frames drawn from the seed.
 
 A cell (an entry of ``workloads``) names a configuration and a traffic mix.
-The configuration is ``configs/<config>.json``; the traffic mix is
+The configuration is the file its ``configs`` entry names
+(``configs/<config>.json``); the file's optional ``reference`` key names its
+plain reference, ``reference/<stem>.py`` (``model`` without the key; the
+contract and :func:`reference` in reference/__init__.py). The traffic mix is
 ``traffic/<traffic>.json``, whose ``driver`` names the generator under
 ``drivers/`` that runs it; the limits of the cell's output comparison are
 ``limits/<cell>.json``; a per-layer metric is read by
 ``metrics/<name>.py``, or by the file of its name without the last dotted
-part (``mfu.clips`` -> ``metrics/mfu.py``).
+part (``mfu.clips`` -> ``metrics/mfu.py``); the bound of each hand-written
+kernel of the program is ``kernels/<kernel>.py`` (roofline.py).
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from perfbench.reference import reference  # noqa: F401  (bench.reference, the name callers use)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -150,9 +156,8 @@ def make_weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
     scales 1 and the L2Norm scales 10 and 8, as built; in the dtypes the
     configuration serves them in (``precision`` bf16: bf16 but for the heads
     and L2Norm scales)."""
-    from perfbench.reference.model import FP32_GROUPS, param_spec
-
-    spec = param_spec(cfg)
+    ref = reference(cfg)
+    spec = ref.param_spec(cfg)
     gen = generator(seed, device)
     count = lambda kind: sum(int(np.prod(s)) for _, s, k in spec if k == kind)
     uniform = torch.rand(count("kernel"), generator=gen, device=device) * 2 - 1
@@ -171,7 +176,7 @@ def make_weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
                 t = t * float(np.sqrt(6.0 / (shape[2] * shape[3] * (shape[0] + shape[1]))))
         else:
             t = torch.full(shape, next(l2) if kind == "l2norm" else 1.0, device=device)
-        lowp = cfg["precision"] == "bf16" and name.split(".")[0] not in FP32_GROUPS
+        lowp = cfg["precision"] == "bf16" and name.split(".")[0] not in ref.FP32_GROUPS
         out[name] = t.to(torch.bfloat16 if lowp else torch.float32).contiguous()
     return out
 

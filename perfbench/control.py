@@ -27,10 +27,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 from perfbench import bench, streams  # noqa: E402
-from perfbench.reference import model as ref_model  # noqa: E402
+from perfbench.reference import fp8  # noqa: E402
 
 
-def control_readings(cell, seed: int, device, lowp=ref_model.fp8) -> dict:
+def control_readings(cell, seed: int, device, lowp=fp8) -> dict:
     cfg, traffic = cell.config, cell.traffic
     lanes = int(traffic["lanes"])
     pool = bench.frame_pool(seed, lanes, int(traffic["pool_per_lane"]), cfg["size"], device)

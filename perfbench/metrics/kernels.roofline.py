@@ -1,7 +1,8 @@
-"""The program's own kernels (K1-K5) against their bounds: the sum over the
-traced launches of each launch's bound time (perfbench/roofline.py, at the
-cell's shapes) over the sum of their measured device time, in percent.
-Nothing when no such kernel ran."""
+"""The program's own kernels against their bounds: the sum over the traced
+launches of each launch's bound time (the kernel's file under
+perfbench/kernels/, at the cell's shapes) over the sum of their measured
+device time, in percent. A kernel whose file counts no bound is left out of
+both sums. Nothing when no counted kernel ran."""
 
 from perfbench import roofline
 

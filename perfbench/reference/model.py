@@ -13,7 +13,8 @@ program.
 in bf16: both operands and the output of every convolution of the backbone,
 the TCB and the temporal cell, the norms' and residual adds' outputs, the
 L2Norm, re-sampling and gate outputs and the carried state. The benchmark's
-control puts a lower precision there.
+control puts a lower precision there (``perfbench.reference.fp8``). The
+module keeps the contract of perfbench/reference/__init__.py.
 """
 
 from __future__ import annotations
@@ -31,13 +32,6 @@ VGG_STAGES = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
 RESNET101 = (3, 4, 23, 3)
 # Top-level groups the serving profile keeps in float32.
 FP32_GROUPS = ("arm", "odm", "l2norm0", "l2norm1")
-
-
-def fp8(x: Tensor) -> Tensor:
-    """x rounded to float8 e4m3 with one scale for the tensor (its largest
-    magnitude to 448): the precision below bf16, the control's."""
-    amax = x.abs().amax().clamp(min=1e-30)
-    return (x * (448.0 / amax)).to(torch.float8_e4m3fn).to(torch.float32) * (amax / 448.0)
 
 
 def _w(cfg) -> Callable[[int], int]:

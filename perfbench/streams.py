@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from perfbench.reference import detect as ref_detect
-from perfbench.reference import model as ref_model
+from perfbench.reference import reference
 
 Result = Tuple[np.ndarray, np.ndarray, np.ndarray]  # boxes (K, 4), scores (K,), classes (K,)
 # Two detections the program's suppression kept may overlap by up to this
@@ -151,6 +151,7 @@ def replay(cfg: dict, weights, streams: Streams, lanes, device, lowp=None,
     """The reference over each lane's checked snippet. Returns, by (lane,
     frame index), the reference's anchors (boxes, scores) and detections at
     each checked position."""
+    ref_model = reference(cfg)
     anchors = ref_detect.priors(cfg, device)
     out = {}
     for g in range(0, len(lanes), batch):

@@ -40,6 +40,14 @@ def workloads():
     return [w["name"] for w in bench.benchmark()["workloads"]]
 
 
+def config_workloads():
+    """(configuration, its first workload) for each configuration of
+    BENCHMARK.json."""
+    spec = bench.benchmark()
+    return [(c["name"], next(w["name"] for w in spec["workloads"] if w["config"] == c["name"]))
+            for c in spec["configs"]]
+
+
 @pytest.fixture(autouse=True)
 def few_threads():
     prev = torch.get_num_threads()

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from perfbench import bench
-from perfbench.reference import model as ref_model
+from perfbench.tests.conftest import config_workloads, tiny_cell
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -52,13 +52,10 @@ def test_config_is_the_programs_geometry(config):
     bench.port_config(cfg)  # raises where the file and the program differ
 
 
-@pytest.mark.parametrize("backbone", ["vgg16", "resnet101"])
-def test_reference_names_every_program_parameter(backbone):
-    cfg = dict(bench.find_cell("vgg16_vid320.clips16_ahead").config, backbone=backbone,
-               dataset="tiny_64", width_mult=0.125, tcb_channels=32, num_classes=4, size=64,
-               feature_maps=[8, 4, 2, 1], min_sizes=[8, 16, 32, 48], prefilter_anchors=64,
-               stem="conv")
+@pytest.mark.parametrize("config,workload", config_workloads())
+def test_reference_names_every_program_parameter(config, workload):
+    cfg = tiny_cell(workload).config
     model = bench.build_model(cfg, torch.device("cpu"))
     program = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    reference = {n: s for n, s, _ in ref_model.param_spec(cfg)}
+    reference = {n: s for n, s, _ in bench.reference(cfg).param_spec(cfg)}
     assert program == reference

@@ -101,8 +101,9 @@ CONV_WORDS = ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad", "fprop", "g
 
 
 def kind(name: str) -> str:
-    """``port`` (a kernel of the program's csrc/), ``conv`` or ``other``
-    (norms, activations, residual adds, casts, copies, reductions, sorts)."""
+    """``port`` (a kernel of the program with a file under kernels/),
+    ``conv`` or ``other`` (norms, activations, residual adds, casts, copies,
+    reductions, sorts)."""
     if kernel_of(name):
         return "port"
     low = name.lower()
